@@ -29,10 +29,12 @@ HARD_STOP = 2000  # = fps * 100
 
 def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: bool = False,
                     gaze_predictor_apply=None, confounded: bool = False,
-                    return_frames: bool = False):
+                    return_frames: bool = False, far_decimate: bool = False,
+                    lower_window: bool = False):
     """Build rollout(spec, params, generator=None, draws=None) -> (final
     state, trace): trace is the ego positions [steps, B, 2], or the rendered
-    frames [steps, B, H, W] with ``return_frames``.
+    frames [steps, B, H, W] with ``return_frames``. ``far_decimate`` and
+    ``lower_window`` go to every ``render_frame`` call.
 
     policy_fn(params, obs [B, H, W, S]) -> [B, 7] actions.
     """
@@ -41,6 +43,9 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
                                   "two-pass are queued in ROADMAP.md (port queue)")
     s = cfg.data["frame_stack"]
     env = DrivingEnv()
+
+    def render(spec, state):
+        return render_frame(spec, state, far_decimate=far_decimate, lower_window=lower_window)
 
     @torch.inference_mode()
     def rollout(spec, params, generator: torch.Generator | None = None,
@@ -54,13 +59,13 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
         if draws.shape != (steps, b, DRAWS_PER_STEP):
             raise ValueError(f"draws must be [{steps}, {b}, {DRAWS_PER_STEP}], got {tuple(draws.shape)}")
         state = env.reset(spec)
-        frames = render_frame(spec, state)[..., None].repeat(1, 1, 1, s)  # [B, H, W, S]
+        frames = render(spec, state)[..., None].repeat(1, 1, 1, s)  # [B, H, W, S]
         # warm-up no-op: full brake (noop_control, autonomous_agent.py:194-206)
         noop = torch.zeros(7, device=dev)
         noop[2] = 1.0
         trace = []
         for t in range(steps):
-            frame = render_frame(spec, state)
+            frame = render(spec, state)
             frames = torch.cat([frames[..., 1:], frame[..., None]], -1)
             action = policy_fn(params, frames)
             action = torch.where((state.t < WARMUP_STEPS)[:, None], noop, action)

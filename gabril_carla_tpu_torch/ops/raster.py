@@ -28,12 +28,18 @@ FLOW_STRIDE = 4
 K_BOX = 32  # the K nearest visible boxes are composited
 _INTERP_EPS = 2.0 ** -46  # np.spacing(float32 eps), jnp.interp's zero-width test
 
-# Row-count thresholds the JAX kernel's depth-class prefixes are validated
-# against (cam slots 11-14 and 16-17). The CUDA kernel loops over every row
-# and does not read them; they stay in the operands so that both packages
-# produce the same ones.
+# Row-count thresholds the kernel's depth-class prefixes are validated
+# against (cam slots 11-14 and 16-17; render_kernel.row_sets): a class whose
+# ground reaches z_max has every output-relevant winner within
+# 1.154*z_max + 6 m of the camera, and the deep classes (ground beyond z_min)
+# none nearer than z_min - 6 m, apart from the 4 forced window endpoints.
 NEAR_THR2 = (14.6 * 14.6, 20.0 * 20.0, 47.0 * 47.0)
 LOWER_THR2 = ((11.6 - 6.0) ** 2, (34.9 - 6.0) ** 2)
+# far_decimate: beyond 40 m every other route row is biased out of the
+# argmin (window endpoint exempt), so the deep classes need fewer rows. Not
+# output-exact: a pixel whose winner was dropped takes the 2 m neighbour's
+# line, a few horizon pixels at most.
+FAR_DECIMATE_R2 = 40.0 * 40.0
 
 
 def _camera_basis(ego_pos, ego_yaw):
@@ -184,7 +190,7 @@ def _compact_boxes(boxes):
     return torch.cat([out[..., :6], valid.float()[..., None], out[..., 7:]], -1)
 
 
-def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather):
+def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather, far_decimate: bool = False):
     """Assemble the render operands per world.
 
     Returns cam_scalars [B, 18], cols [B, 160, 8] and compacted boxes
@@ -196,7 +202,8 @@ def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather):
     corridor's upper bound. Coordinates are CAMERA-RELATIVE: world-absolute
     magnitudes (~1e3) would cancel the ~m^2 argmin contrasts out of f32.
     Rows are distance-sorted with the window endpoints forced to the front,
-    exactly as the JAX package orders them.
+    exactly as the JAX package orders them. ``far_decimate`` biases every
+    other far route row out (FAR_DECIMATE_R2).
     """
     b = cam.shape[0]
     dev = cam.device
@@ -209,6 +216,12 @@ def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather):
     qd = torch.gather(spec.route_dir, 1, ridx[..., None].expand(-1, -1, 2))
     valid = (ridx < spec.n_route[:, None]).float()
     c3 = (q * q).sum(-1) + (1.0 - valid) * 1e12
+    n_valid_route = (spec.n_route - start).clamp(1, ROUTE_VIEW).long()
+    if far_decimate:
+        # the window endpoints keep their forced front rank: they stay winnable
+        drop = ((ar % 2 == 1) & ((q * q).sum(-1) > FAR_DECIMATE_R2)
+                & (ar != (n_valid_route - 1)[:, None]))
+        c3 = c3 + drop.float() * 1e12
     e3 = qd[..., 0] * q[..., 1] - qd[..., 1] * q[..., 0]
     route_cols = torch.stack(
         [-2.0 * q[..., 0], -2.0 * q[..., 1], c3, qd[..., 0], qd[..., 1], e3,
@@ -230,7 +243,6 @@ def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather):
     # sort key: camera distance, window endpoints forced to the front (the
     # sets below run in the JAX package's order, later ones winning)
     key = cols[..., 2].clone()
-    n_valid_route = (spec.n_route - start).clamp(1, ROUTE_VIEW).long()
     lastf = (fvalid.sum(-1) - 1).clamp_min(0)
     any_f = fvalid.any(-1)
     key[:, 0] = -0.7
@@ -254,13 +266,18 @@ def _pallas_inputs(spec, state, cam, fwd, right, boxes, weather):
     return cam_scalars, cols, cboxes
 
 
-def render_frame(spec, state) -> torch.Tensor:
+def render_frame(spec, state, *, far_decimate: bool = False,
+                 lower_window: bool = False) -> torch.Tensor:
     """Grayscale frames [B, H, W] in [0, 1] from each ego camera, on the
     device the state lives on: the CUDA kernel for CUDA tensors (it launches
-    or raises), its plain PyTorch version for CPU tensors."""
+    or raises), its plain PyTorch version for CPU tensors. The two flags are
+    the TPU kernel's variants (GABRIL_FAR_DECIMATE and GABRIL_LOWER_WINDOW
+    in the JAX package); the defaults are its default path."""
     cam, fwd, right = _camera_basis(state.ego.pos, state.ego.yaw)
     boxes = torch.cat([_collect_actor_boxes(state, cam, fwd, right),
                        _signal_boxes(spec, state, cam, fwd, right)], 1)
     weather = weather_now(spec, state)
-    cam_scalars, cols, cboxes = _pallas_inputs(spec, state, cam, fwd, right, boxes, weather)
-    return render_from_operands(cam_scalars, cols, cboxes)
+    cam_scalars, cols, cboxes = _pallas_inputs(spec, state, cam, fwd, right, boxes, weather,
+                                               far_decimate=far_decimate)
+    return render_from_operands(cam_scalars, cols, cboxes, far_decimate=far_decimate,
+                                lower_window=lower_window)

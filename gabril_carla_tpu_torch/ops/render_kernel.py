@@ -9,6 +9,11 @@ nvcc for sm_90a into a shared library with a plain C interface at first use
 kernel (or raises), for CPU tensors it runs ``render_from_operands_plain``,
 the same function in plain PyTorch. ``render_kernel.launches`` counts the
 kernel's launches.
+
+Both visit the TPU kernel's row sets: a ground pixel's depth class
+(``pixel_classes``) and the per-world count gates (``row_sets``) pick the
+distance-sorted rows its argmin runs over, with the TPU kernel's two
+variants ``far_decimate`` and ``lower_window`` as keyword arguments.
 """
 
 from __future__ import annotations
@@ -47,6 +52,18 @@ CAM_Z = 1.6  # m above ground
 MAX_DEPTH = 120.0
 SKY, GRASS, ROAD, MARK = 0.62, 0.42, 0.24, 0.85
 
+# The TPU kernel's row sets (pallas_raster.py:63-83, 179-229). A ground
+# pixel's class comes from its bottom-first flat index, (H-1-v)*W + u: the
+# class boundaries are the TPU's 32-row x 128-lane tiles 2, 4 and 6. Each
+# class runs a prefix of the distance-sorted rows when its row count (cam
+# slots 11-14) fits, every row otherwise; with lower_window, classes 2 and
+# 3 skip to row LOWER_START after the 4 forced endpoint rows when the lower
+# count (slots 16-17) covers the skipped range.
+CLASS_PX = (8192, 16384, 24576)
+NEAR_PREFIX, NEAR_PREFIX_DECIMATED = (56, 72, 120), (56, 72, 88)
+CAP3, CAP3_DECIMATED = 128, 96
+LOWER_START = (12, 44)
+
 
 def build() -> tuple[Path, str]:
     """Compile csrc/render.cu with nvcc unless a library built from the same
@@ -78,21 +95,22 @@ class RenderKernel:
         if self._lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            lib.render_frames.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.render_frames.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             lib.render_frames.restype = ctypes.c_int
             lib.render_error_string.argtypes = [ctypes.c_int]
             lib.render_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, cam_scalars, route_cols, boxes) -> torch.Tensor:
+    def __call__(self, cam_scalars, route_cols, boxes, far_decimate: bool = False,
+                 lower_window: bool = False) -> torch.Tensor:
         lib = self.load()
         b = cam_scalars.shape[0]
         out = torch.empty((b, H, W), dtype=torch.float32, device=cam_scalars.device)
         stream = torch.cuda.current_stream(cam_scalars.device).cuda_stream
         err = lib.render_frames(cam_scalars.data_ptr(), route_cols.data_ptr(), boxes.data_ptr(),
                                 out.data_ptr(), b, route_cols.shape[1], boxes.shape[1],
-                                ROUTE_VIEW, stream)
+                                ROUTE_VIEW, int(far_decimate), int(lower_window), stream)
         if err != 0:
             raise RuntimeError(f"render kernel launch failed: {lib.render_error_string(err).decode()}")
         self.launches += 1
@@ -102,7 +120,10 @@ class RenderKernel:
 render_kernel = RenderKernel()
 
 
-def _check(cam_scalars, route_cols, boxes):
+def _check(cam_scalars, route_cols, boxes, far_decimate, lower_window):
+    for name, flag in (("far_decimate", far_decimate), ("lower_window", lower_window)):
+        if not isinstance(flag, bool):
+            raise TypeError(f"render: {name} must be a bool, got {type(flag).__name__}")
     b = cam_scalars.shape[0]
     if (cam_scalars.shape != (b, N_CAM) or route_cols.dim() != 3 or boxes.dim() != 3
             or route_cols.shape[0] != b or boxes.shape[0] != b
@@ -120,16 +141,20 @@ def _check(cam_scalars, route_cols, boxes):
             raise ValueError("render operands on the card must be 16-byte aligned (float4 loads)")
 
 
-def render_from_operands(cam_scalars, route_cols, boxes) -> torch.Tensor:
+def render_from_operands(cam_scalars, route_cols, boxes, *, far_decimate: bool = False,
+                         lower_window: bool = False) -> torch.Tensor:
     """cam_scalars [B, 18], route_cols [B, R, 8], boxes [B, K, 8] -> frames
     [B, 180, 320] in [0, 1]: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    _check(cam_scalars, route_cols, boxes)
+    for CPU tensors. ``far_decimate`` picks the smaller deep prefixes that go
+    with operands built by ``_pallas_inputs(..., far_decimate=True)``;
+    ``lower_window`` lets the deep classes skip their near rows."""
+    _check(cam_scalars, route_cols, boxes, far_decimate, lower_window)
     dev = cam_scalars.device.type
     if dev == "cuda":
-        return render_kernel(cam_scalars, route_cols, boxes)
+        return render_kernel(cam_scalars, route_cols, boxes, far_decimate, lower_window)
     if dev == "cpu":
-        return render_from_operands_plain(cam_scalars, route_cols, boxes)
+        return render_from_operands_plain(cam_scalars, route_cols, boxes,
+                                          far_decimate=far_decimate, lower_window=lower_window)
     raise ValueError(f"render: no kernel for device {cam_scalars.device}")
 
 
@@ -137,9 +162,49 @@ def _clamp(x, lo, hi):
     return x.clamp_min(lo).clamp_max(hi)
 
 
-def render_from_operands_plain(cam_scalars, route_cols, boxes) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: a full argmin over every row
-    for each ground pixel, then the min-depth composite over every box."""
+def pixel_classes(device="cpu") -> torch.Tensor:
+    """[H, W] depth class (0-3) of every pixel, from its bottom-first flat
+    index (pallas_raster.py:184-186 with the default 32-row tiles)."""
+    v = torch.arange(H, device=device)[:, None]
+    u = torch.arange(W, device=device)[None, :]
+    flat = (H - 1 - v) * W + u
+    return sum((flat >= c).long() for c in CLASS_PX)
+
+
+def row_sets(cam_scalars, n_rows: int, *, far_decimate: bool = False,
+             lower_window: bool = False) -> torch.Tensor:
+    """[B, 4, n_rows] bool: the rows a ground pixel of each class visits in
+    each world (pallas_raster.py:188-229); every bound is capped at n_rows."""
+    n0, n1, n2 = NEAR_PREFIX_DECIMATED if far_decimate else NEAR_PREFIX
+    cap3 = CAP3_DECIMATED if far_decimate else CAP3
+    lo2, lo3 = LOWER_START
+    c = cam_scalars
+    k = torch.arange(n_rows, device=c.device)
+
+    def prefix(n):
+        return (k < min(n, n_rows)).expand(c.shape[0], -1)
+
+    def window(lo, n):  # the 4 forced endpoint rows, then [lo, n)
+        return ((k < min(4, n_rows)) | ((k >= min(lo, n_rows)) & (k < min(n, n_rows)))).expand(
+            c.shape[0], -1)
+
+    def gate(cond, rows, otherwise):
+        return torch.where(cond[:, None], rows, otherwise)
+
+    every = prefix(n_rows)
+    body2 = gate(c[:, 16] >= lo2, window(lo2, n2), prefix(n2)) if lower_window else prefix(n2)
+    body3 = gate(c[:, 17] >= lo3, window(lo3, cap3), prefix(cap3)) if lower_window else prefix(cap3)
+    return torch.stack([gate(c[:, 11] <= n0, prefix(n0), every),
+                        gate(c[:, 12] <= n1, prefix(n1), every),
+                        gate(c[:, 13] <= n2, body2, every),
+                        gate(c[:, 14] <= cap3 + 0.5, body3, every)], 1)
+
+
+def render_from_operands_plain(cam_scalars, route_cols, boxes, *, far_decimate: bool = False,
+                               lower_window: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: each ground pixel's argmin
+    over the rows of its class's set (rows outside it can never win), then
+    the min-depth composite over the first cam[15] boxes."""
     b = cam_scalars.shape[0]
     dev = cam_scalars.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -165,6 +230,9 @@ def render_from_operands_plain(cam_scalars, route_cols, boxes) -> torch.Tensor:
     cols = route_cols
     t = (gx[..., None] * cols[:, None, None, :, 0] + gy[..., None] * cols[:, None, None, :, 1]
          + cols[:, None, None, :, 2])  # [B, h, W, R]
+    sets = row_sets(cam_scalars, cols.shape[1], far_decimate=far_decimate,
+                    lower_window=lower_window)
+    t = t.masked_fill(~sets[:, pixel_classes(dev)[r0:r1]], float("inf"))
     t_min, idx = t.min(-1)  # first minimum, as the kernel's strict '<'
     sel = torch.gather(cols, 1, idx.reshape(b, -1, 1).expand(-1, -1, ROW_COLS)).reshape(
         idx.shape + (ROW_COLS,))
@@ -188,10 +256,11 @@ def render_from_operands_plain(cam_scalars, route_cols, boxes) -> torch.Tensor:
     img = sky.clone()
     img[:, r0:r1] = torch.where(on_ground[r0:r1], terrain, sky[:, r0:r1])
 
-    # min-depth composite over the box list (first of equal depths wins)
+    # min-depth composite over the visible boxes (first of equal depths wins)
     bx = boxes[:, :, None, None, :]  # [B, K, 1, 1, 8]
+    shown = torch.arange(boxes.shape[1], device=dev)[None, :] < cam_scalars[:, 15:16]
     inside = ((u >= bx[..., 0]) & (u <= bx[..., 1]) & (v >= bx[..., 2]) & (v <= bx[..., 3])
-              & (bx[..., 6] > 0.5))  # [B, K, H, W]
+              & (bx[..., 6] > 0.5) & shown[..., None, None])  # [B, K, H, W]
     depth = torch.where(inside, bx[..., 4], torch.tensor(1e30, **f32))
     best_d, best = depth.min(1)  # [B, H, W]
     best_c = torch.gather(boxes[..., 5], 1, best.reshape(b, -1)).reshape(best.shape)

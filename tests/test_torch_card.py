@@ -7,17 +7,21 @@ only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_card.py -q
 
-Bar: tests/test_raster.py's, fewer than 1% of pixels off by more than 1e-3
-and a median difference below 1e-5, per frame.
+The scenes are chip_smoke.py's (run from the repo root, as above). Bar:
+chip_smoke.py's, at most FLIP_PX pixels a frame off by more than 1e-5, as
+kernel and plain version visit the same rows and boxes.
 """
 
-import numpy as np
+import itertools
+
 import pytest
 import torch
 
+from chip_smoke import (FLIP_PX, _crossing_scene, _crowded, _mid_route, _tight_loop, off_pixels,
+                        operands, single_route)
 from gabril_carla_tpu_torch.data.tasks import seen_routes
 from gabril_carla_tpu_torch.env.env import DrivingEnv
-from gabril_carla_tpu_torch.env.world import build_world_spec, load_benchmark_specs, stack_specs, to_torch
+from gabril_carla_tpu_torch.env.world import load_benchmark_specs, to_torch
 from gabril_carla_tpu_torch.ops import raster as R
 from gabril_carla_tpu_torch.ops import render_kernel as K
 
@@ -31,23 +35,31 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(spec, state):
-    cam, fwd, right = R._camera_basis(state.ego.pos, state.ego.yaw)
-    boxes = torch.cat([R._collect_actor_boxes(state, cam, fwd, right),
-                       R._signal_boxes(spec, state, cam, fwd, right)], 1)
-    return R._pallas_inputs(spec, state, cam, fwd, right, boxes, R.weather_now(spec, state))
+def _real_routes(device):
+    spec = to_torch(load_benchmark_specs(seen_routes()[:3]), device)
+    return spec, DrivingEnv().reset(spec)
+
+
+def _scene(builder):
+    """A chip_smoke.py scene builder as device -> (spec, state)."""
+    return lambda device: single_route(*builder(), device)
+
+
+# name -> (scene, the branch its camera slots must show)
+SCENES = {"real_routes": (_real_routes, lambda cam: cam[:, 14] >= 0),
+          "tight_loop": (_scene(_tight_loop), lambda cam: cam[:, 11] > 56),
+          "mid_route": (_scene(_mid_route), lambda cam: (cam[:, 16] >= 12) & (cam[:, 17] >= 44)),
+          "crowded": (_scene(_crowded), lambda cam: cam[:, 15] > 24)}
+FLAGS = list(itertools.product((False, True), repeat=2))  # (far_decimate, lower_window)
 
 
 def _assert_frames_match(a, b):
-    d = (a - b).abs().flatten(1)
-    assert ((d > 1e-3).float().mean(1) < 0.01).all()
-    assert (d.median(1).values < 1e-5).all()
+    off, mx = off_pixels(a, b)
+    assert int(off.max()) <= FLIP_PX, (off.tolist(), mx)
 
 
 def test_kernel_matches_plain_on_real_routes(cuda):
-    spec = to_torch(load_benchmark_specs(seen_routes()[:3]), cuda)
-    state = DrivingEnv().reset(spec)
-    ops = _operands(spec, state)
+    ops = operands(*_real_routes(cuda))
     before = K.render_kernel.launches
     out = K.render_from_operands(*ops)
     torch.cuda.synchronize()
@@ -57,17 +69,24 @@ def test_kernel_matches_plain_on_real_routes(cuda):
 
 
 def test_kernel_matches_plain_with_crossing_flow(cuda):
-    wps = np.stack([np.arange(0.0, 160, 2.0), np.zeros(80)], 1).astype(np.float32)
-    spec = to_torch(stack_specs([build_world_spec({
-        "id": 2, "town": "T", "waypoints": wps, "weather": [0, 0, 0, 90],
-        "scenarios": [{"type": "CrossingBicycleFlow", "trigger": (40.0, 0.0, 0.0),
-                       "start_actor_flow": (60.0, -40.0), "end_actor_flow": (60.0, 40.0),
-                       "flow_speed": 8.0, "source_dist_interval": (12.0, 25.0)}]})]), cuda)
-    st = DrivingEnv().reset(spec)
-    st = st.replace(ego=st.ego.replace(pos=torch.tensor([[30.0, 0.0]], device=cuda),
-                                       route_idx=torch.full_like(st.ego.route_idx, 30)))
-    ops = _operands(spec, st)
+    ops = operands(*_scene(_crossing_scene)(cuda))
     _assert_frames_match(K.render_from_operands(*ops), K.render_from_operands_plain(*ops))
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: f"fd{int(f[0])}-lw{int(f[1])}")
+@pytest.mark.parametrize("name", list(SCENES))
+def test_kernel_matches_plain_with_flags(cuda, name, flags):
+    far_decimate, lower_window = flags
+    scene, branch = SCENES[name]
+    ops = operands(*scene(cuda), far_decimate=far_decimate)
+    assert branch(ops[0]).all(), ops[0][:, 11:18]
+    before = K.render_kernel.launches
+    out = K.render_from_operands(*ops, far_decimate=far_decimate, lower_window=lower_window)
+    torch.cuda.synchronize()
+    assert K.render_kernel.launches == before + 1
+    plain = K.render_from_operands_plain(*ops, far_decimate=far_decimate, lower_window=lower_window)
+    print(f"{name} {flags}: max abs error {(out - plain).abs().max().item():.3g}")
+    _assert_frames_match(out, plain)
 
 
 def test_render_frame_launches_once_per_call(cuda):
@@ -75,7 +94,7 @@ def test_render_frame_launches_once_per_call(cuda):
     state = DrivingEnv().reset(spec)
     before = K.render_kernel.launches
     R.render_frame(spec, state)
-    R.render_frame(spec, state)
+    R.render_frame(spec, state, far_decimate=True, lower_window=True)
     assert K.render_kernel.launches == before + 2
 
 
