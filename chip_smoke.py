@@ -21,15 +21,29 @@ Phases, each fatal on failure:
      the plain version and the kernel's bound (the work of these operands'
      row sets, and the full-loop count beside it);
   6. where a tick's time goes: each stage's wall time, and a profiler
-     window's device busy share and heaviest kernels.
-Prints a JSON line of kernel records, the card line, and last
-{"ok": true, "device": {...}}. Exits non-zero without them when there is no
-CUDA device or any phase fails.
+     window's device busy share and heaviest kernels;
+  7. the BC train step at bench_train.py's configuration (batch 2000, Reg,
+     bf16, full width), its batch resident on the card: one warm-up step,
+     then TRAIN_STEPS timed with CUDA events; samples/s, step ms, peak
+     memory, the FLOPs of a step (FlopCounterMode) and their share of the
+     bf16 peak, the stage split and a profiler window; fatal unless the
+     loss and metrics are finite, loss_reg > 0 and every parameter group
+     moved;
+  8. every gaze x dropout method on the card: loss and gradients at the CPU
+     parity tests' configuration (24x48, hiddens 16, batch 4, float32,
+     draws given) against the same code on the CPU, within LOSS_RTOL and
+     GRAD_FRAC; then one bf16 step of each at full width, batch 16, finite;
+  9. the Trainer: 2 device-resident epochs at full width, batch 64, into a
+     temporary directory, ending with a finite loss, ep2 and params.json.
+Prints a JSON line of kernel records, a JSON line of the train step's
+numbers, the card line, and last {"ok": true, "device": {...}}. Exits
+non-zero without them when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +57,12 @@ CHUNK = 8  # worlds per plain-version call (its [B, 87, 320, 160] distance tenso
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM f32 outside the tensor cores
 BAR_ABS, FLIP_PX = 1e-5, 4
+TRAIN_BATCH, TRAIN_STEPS = 2000, 30  # bench_train.py's batch and timed steps
+PEAK_BF16_S = 989e12  # H100 SXM dense bf16
+# bench_train.py's step counted from the shapes: the encoder's convs and the
+# pre-actor are 1.80 GFLOP a sample forward, x3 for forward and backward
+FLOPS_COUNTED = 1.80e9 * 3 * TRAIN_BATCH
+LOSS_RTOL, GRAD_FRAC = 1e-4, 1e-3  # phase 8: card against CPU
 
 
 def log(msg):
@@ -172,9 +192,6 @@ def breakdown(spec, params, policy, cfg, ticks=10):
     """Where a tick's time goes at the main path's batch: the wall time of
     each stage, synchronised around it, then a profiler window over a short
     rollout: the device's busy share and the kernels that fill it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gabril_carla_tpu_torch.env.env import DRAWS_PER_STEP, DrivingEnv
     from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
     from gabril_carla_tpu_torch.ops.raster import render_frame
@@ -205,10 +222,19 @@ def breakdown(spec, params, policy, cfg, ticks=10):
         + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     rollout = make_rollout_fn(policy, cfg, steps=ticks)
+    profile_window("breakdown", f"{ticks} ticks", lambda: rollout(spec, params, draws=draws))
+
+
+def profile_window(tag, what, fn, top=8):
+    """Run ``fn`` under torch.profiler; log the device's busy share of the
+    wall time and the heaviest kernels; return (busy ms, wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rollout(spec, params, draws=draws)
+        fn()
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -217,10 +243,247 @@ def breakdown(spec, params, policy, cfg, ticks=10):
             n, us = kernels.get(e.name, (0, 0.0))
             kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in kernels.values()) / 1e3
-    log(f"[breakdown] profiled {ticks} ticks: device busy {busy:.3f} ms of {span:.3f} ms wall "
+    log(f"[{tag}] profiled {what}: device busy {busy:.3f} ms of {span:.3f} ms wall "
         f"({100 * busy / span:.1f}%), {sum(n for n, _ in kernels.values())} kernel launches")
-    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"[breakdown] {us / 1e3:10.3f} ms {n:6d}x {name[:90]}")
+    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}] {us / 1e3:10.3f} ms {n:6d}x {name[:90]}")
+    return busy, span
+
+
+# --- BC training (phases 7-9) -------------------------------------------------
+
+
+def bench_train_cfg(batch_size: int = TRAIN_BATCH):
+    """bench_train.py's configuration: the defaults (full width, 180x320
+    grayscale, frame stack 2, bf16) with Reg, mask_sigma 30."""
+    from gabril_carla_tpu_torch.utils.config import default_bc_config
+
+    cfg = default_bc_config()
+    cfg["data"]["batch_size"] = batch_size
+    cfg["gaze"].update(method="Reg", mask_sigma=30.0)
+    cfg["training"]["compute_dtype"] = "bfloat16"
+    return cfg
+
+
+def bench_batch(cfg, batch_size: int, device, seed: int = 0) -> dict:
+    """A batch made as bench_train.py:76-81 makes it, from numpy ``seed``."""
+    import numpy as np
+
+    s, p = cfg.data["frame_stack"], cfg.gaze["max_points"]
+    h, w = cfg.data["img_height"], cfg.data["img_width"]
+    host = np.random.default_rng(seed)
+    batch = {"obs_seq": host.integers(0, 255, (batch_size, s, h, w, 1), dtype=np.uint8),
+             "gaze_seq": host.random((batch_size, s, p * 2), dtype=np.float32),
+             "actions": host.random((batch_size, cfg.data["action_dim"]), dtype=np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def narrow_cfg(gaze: str, dropout: str):
+    """The CPU parity tests' BC configuration (tests/test_torch_common.py:
+    bc_cfgs): 24x48, hiddens 16, float32, saliency temperature 1."""
+    from gabril_carla_tpu_torch.utils.config import default_bc_config
+
+    cfg = default_bc_config()
+    cfg["data"].update(img_height=24, img_width=48, frame_stack=2, action_dim=7, batch_size=4)
+    cfg["model"].update(embedding_dim=8, num_hiddens=16, num_residual_layers=1,
+                        num_residual_hiddens=8, z_dim=16)
+    cfg["gaze"].update(method=gaze, max_points=3, mask_sigma=4.0, beta=1.0)
+    cfg["dropout"].update(method=dropout, num_embeddings=16, oreo_num_mask=2)
+    cfg["training"].update(compute_dtype="float32", epochs=1)
+    cfg["scheduler"]["type"] = "none"
+    return cfg
+
+
+def card_vs_cpu(gaze: str, dropout: str):
+    """Loss, metrics and gradients of one method at narrow_cfg on the card
+    and on the CPU, same parameters, batch and draws. Returns (largest
+    relative metric gap, largest gradient gap over its leaf's scale)."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
+    from gabril_carla_tpu_torch.train.bc import (build_bc_models, init_bc_params, loss_and_grads,
+                                                 step_draws)
+
+    cfg = narrow_cfg(gaze, dropout)
+    cpu = build_bc_models(cfg, "cpu")
+    params = init_bc_params(cpu, cfg, torch.Generator().manual_seed(0))
+    store = synthetic_episodes(n_demos=1, steps=8, img_hw=(24, 48), max_points=3)
+    batch = next(BCDataset(store, 2).iter_batches(4, np.random.default_rng(0)))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    draws = step_draws(torch.Generator().manual_seed(1), cfg, 4, "cpu")
+    to_card = lambda d: {k: [t.cuda() for t in v] if k == "igmd" else v.cuda() for k, v in d.items()}
+    _, m_cpu, g_cpu = loss_and_grads(cpu, cfg, params, batch, draws)
+    _, m_card, g_card = loss_and_grads(build_bc_models(cfg, "cuda"), cfg,
+                                       {k: v.cuda() for k, v in params.items()}, to_card(batch),
+                                       to_card(draws))
+
+    def gap(a, b):
+        d = float((a - b).abs().max())
+        return d / float(b.abs().max()) if d else 0.0
+
+    return (max(gap(m_card[k].cpu(), m_cpu[k]) for k in m_cpu),
+            max(gap(g_card[k].cpu(), g_cpu[k]) for k in g_cpu))
+
+
+def stage_split(models, cfg, state, batch, gen, reps=3) -> dict:
+    """Wall ms of the step's stages, each synchronised: heat prep, forward
+    and loss (without the heat prep it contains), backward, optimizer."""
+    from gabril_carla_tpu_torch.train.bc import bc_loss_fn
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    wall = dict.fromkeys(("heat prep", "forward and loss", "backward", "optimizer"), 0.0)
+    for _ in range(reps):
+        _, t_heat = timed(lambda: models.heatmapper.prepare_for_bc(
+            batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
+            grayscale=cfg.model["grayscale"]))
+        live = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+        (loss, _), t_fwd = timed(lambda: bc_loss_fn(live, models, cfg, batch, gen))
+        grads, t_bwd = timed(lambda: torch.autograd.grad(loss, list(live.values())))
+        _, t_opt = timed(lambda: state.apply_gradients(dict(zip(live, grads))))
+        for k, t in zip(wall, (t_heat, t_fwd - t_heat, t_bwd, t_opt)):
+            wall[k] += t / reps
+    return wall
+
+
+def train_phase(card: str) -> dict:
+    """Phase 7: the train step at bench_train.py's configuration."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+
+    cfg = bench_train_cfg()
+    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+    models, state0 = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+    step = make_bc_train_step(models, cfg)
+    batch = bench_batch(cfg, TRAIN_BATCH, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state0, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch, gen)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: float(v) for k, v in metrics.items()}
+    groups = sorted({k.split(".")[0] for k in state.params})
+    moved = {g: any(not torch.equal(state.params[k], state0.params[k])
+                    for k in state.params if k.startswith(g + ".")) for g in groups}
+    finite = all(math.isfinite(v) for v in vals.values()) and all(
+        bool(torch.isfinite(v).all()) for v in state.params.values())
+    log(f"[train] bench_train.py's step (batch {TRAIN_BATCH}, Reg, bf16, full width): first step "
+        f"{first_ms:.1f} ms; {TRAIN_STEPS} steps {step_ms:.3f} ms each, "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f} samples/s; peak memory {peak / 2**30:.2f} GiB; on {card}")
+    log(f"[train] metrics after {state.step} steps: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
+        + "; parameter groups moved: " + ", ".join(f"{g} {m}" for g, m in moved.items()))
+    if not finite or vals["loss_reg"] <= 0 or not all(moved.values()):
+        raise SystemExit("chip_smoke: the train step gave non-finite results, loss_reg <= 0 or "
+                         "left a parameter group unchanged")
+
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch, gen)
+    flops = counter.get_total_flops()
+    bound_ms = flops / PEAK_BF16_S * 1e3
+    log(f"[train] FLOPs per step {flops / 1e12:.3f} T (FlopCounterMode; counted from the shapes "
+        f"{FLOPS_COUNTED / 1e12:.2f} T); at the {PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16 peak "
+        f"{bound_ms:.2f} ms, so the step runs at {100 * bound_ms / step_ms:.1f}% of it")
+    stages = stage_split(models, cfg, state, batch, gen)
+    log("[train] stage split, wall ms each synchronised: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    busy, span = profile_window("train", "3 steps", lambda: [step(state, batch, gen) for _ in range(3)])
+
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(2):
+            step(state, batch, gen)
+        start.record()
+        for _ in range(10):
+            step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        bench_ms = start.elapsed_time(end) / 10
+    finally:
+        torch.backends.cudnn.benchmark = False
+    log(f"[train] with cudnn.benchmark on: {bench_ms:.3f} ms a step "
+        f"({TRAIN_BATCH / bench_ms * 1e3:.1f} samples/s)")
+    return {"samples_per_s": TRAIN_BATCH / step_ms * 1e3, "step_ms": step_ms, "first_step_ms": first_ms,
+            "flops_per_step": flops, "flops_counted": FLOPS_COUNTED,
+            "bf16_peak_share": bound_ms / step_ms, "peak_mem_gib": peak / 2**30,
+            "device_busy_share": busy / span, "stages_ms": stages,
+            "cudnn_benchmark_step_ms": bench_ms, "card": card}
+
+
+def methods_phase():
+    """Phase 8: every method on the card against the CPU, then one bf16
+    full-width step of each."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.train.bc import (DROPOUT_METHODS, GAZE_METHODS, init_bc_state,
+                                                 make_bc_train_step)
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+
+    worst = [0.0, 0.0]
+    for gaze in GAZE_METHODS:
+        for dropout in DROPOUT_METHODS:
+            loss_gap, grad_gap = card_vs_cpu(gaze, dropout)
+            worst = [max(worst[0], loss_gap), max(worst[1], grad_gap)]
+            if loss_gap > LOSS_RTOL or grad_gap > GRAD_FRAC:
+                raise SystemExit(f"chip_smoke: {gaze}/{dropout} on the card disagrees with the CPU: "
+                                 f"metrics {loss_gap:.3g} (bar {LOSS_RTOL:g}), gradients "
+                                 f"{grad_gap:.3g} of scale (bar {GRAD_FRAC:g})")
+    log(f"[methods] {len(GAZE_METHODS) * len(DROPOUT_METHODS)} gaze x dropout methods, card against "
+        f"CPU at 24x48 float32: worst metric gap {worst[0]:.3g} relative (bar {LOSS_RTOL:g}), worst "
+        f"gradient gap {worst[1]:.3g} of its leaf's scale (bar {GRAD_FRAC:g})")
+    for gaze in GAZE_METHODS:
+        for dropout in DROPOUT_METHODS:
+            cfg = bench_train_cfg(16)
+            cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
+            tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+            models, state = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+            new, metrics = make_bc_train_step(models, cfg)(
+                state, bench_batch(cfg, 16, "cuda"), torch.Generator(device="cuda").manual_seed(1))
+            vals = [float(v) for v in metrics.values()]
+            if not (np.isfinite(vals).all() and all(bool(torch.isfinite(v).all()) for v in new.params.values())):
+                raise SystemExit(f"chip_smoke: the bf16 step of {gaze}/{dropout} is not finite")
+    log("[methods] one bf16 step of each at full width, batch 16: finite")
+
+
+def trainer_phase():
+    """Phase 9: Trainer(cfg, BCDataset(synthetic_episodes(...)), mode="bc")."""
+    import tempfile
+    from pathlib import Path
+
+    from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
+    from gabril_carla_tpu_torch.train.loop import Trainer
+
+    cfg = bench_train_cfg(64)
+    cfg["training"].update(epochs=2, device_data=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["logging"]["log_dir"] = tmp
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, BCDataset(synthetic_episodes(n_demos=4, steps=64), 2), mode="bc")
+        last = trainer.train()
+        dt = time.perf_counter() - t0
+        ckpt = Path(trainer.logger.ckpt_dir)
+        ok = (trainer.device_mode and math.isfinite(last["loss"]) and (ckpt / "ep2" / "params.pt").exists()
+              and (ckpt / "params.json").exists())
+    log(f"[trainer] 2 device-resident epochs of {trainer.steps_per_epoch} steps at batch 64 in "
+        f"{dt:.1f} s (set-up included): loss {last['loss']:.5f}, ep2 and params.json written: {ok}")
+    if not ok:
+        raise SystemExit("chip_smoke: the Trainer did not end with a finite loss, ep2 and params.json")
 
 
 def main() -> int:
@@ -332,6 +595,11 @@ def main() -> int:
 
     # 6. where the time goes
     breakdown(spec, params, policy, cfg)
+
+    # 7-9. BC training
+    train = train_phase(card)
+    methods_phase()
+    trainer_phase()
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     print(json.dumps({"kernels": [{
@@ -339,6 +607,7 @@ def main() -> int:
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}]}))
+    print(json.dumps({"train": train}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,1 +1,1 @@
-"""Vendored benchmark data and task splits."""
+"""Vendored benchmark data, task splits and the BC dataset."""

@@ -8,6 +8,11 @@ torch's symmetric ``padding`` (P1 -> 1, "VALID" -> 0, P2 -> 2).
 NCHW here, NHWC in the JAX package. Parameters stay float32; with
 ``dtype=torch.bfloat16`` every conv casts its input and weights to bf16 and
 returns bf16, as flax's ``dtype=bf16`` does with float32 params.
+
+``dropout_mask`` turns on IGMD: gaze-modulated dropout after conv 1 and
+conv 2 (linear_models.py:191-199), its expected-value form when
+``deterministic``, else the mask of two uniform draws given as ``uniforms``
+(one [B, 1, h, w] tensor for each of the two feature maps).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.gaze import gmd_dropout
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
@@ -49,6 +56,17 @@ class ResidualStack(nn.Module):
         return F.relu(x)
 
 
+def latent_hw(img_height: int, img_width: int) -> tuple[int, int]:
+    """The encoder's output size for [H, W] frames: three 4x4/s2/p1 convs
+    halve (floor), the 3x3 valid conv takes 2; 180x320 -> 20x38."""
+    return img_height // 8 - 2, img_width // 8 - 2
+
+
+def igmd_hw(img_height: int, img_width: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """Sizes of the two feature maps IGMD drops from (after conv 1, conv 2)."""
+    return (img_height // 2, img_width // 2), (img_height // 4, img_width // 4)
+
+
 class Encoder(nn.Module):
     """Observation encoder: [B, C, 180, 320] -> [B, embedding_dim, 20, 38]."""
 
@@ -66,10 +84,19 @@ class Encoder(nn.Module):
         self.out1 = nn.Conv2d(nh, nh, 5, padding=2)
         self.out2 = nn.Conv2d(nh, embedding_dim, 5, padding=2)
 
-    def forward(self, x):
+    def forward(self, x, dropout_mask=None, deterministic: bool = True, uniforms=None):
         dt = self.dtype
+        igmd = dropout_mask is not None
+        if igmd and not deterministic and (uniforms is None or len(uniforms) != 2):
+            raise ValueError("IGMD in train mode needs two uniform tensors")
         x = F.relu(conv(x, self.down1, dt))
+        if igmd:
+            x = gmd_dropout(x, dropout_mask, test_mode=deterministic,
+                            uniforms=None if deterministic else uniforms[0])
         x = F.relu(conv(x, self.down2, dt))
+        if igmd:
+            x = gmd_dropout(x, dropout_mask, test_mode=deterministic,
+                            uniforms=None if deterministic else uniforms[1])
         x = F.relu(conv(x, self.down3, dt))
         x = self.res(conv(x, self.mid, dt))
         x = F.relu(conv(x, self.out1, dt))

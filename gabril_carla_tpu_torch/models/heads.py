@@ -1,7 +1,8 @@
-"""MLP heads (port of gabril_carla_tpu/models/heads.py, the policy's part).
+"""MLP heads (port of gabril_carla_tpu/models/heads.py, the BC part).
 
-Parity: linear_models.py:302-353 and the heads train/train_bc.py:79-86
-builds (pre_actor = Flatten + Linear(z_dim); actor = Linear-ReLU-Linear).
+Parity: linear_models.py:302-353 and the heads train/train_bc.py:73-86
+builds (pre_actor = Flatten + Linear(z_dim); actor = Linear-ReLU-Linear;
+GRIL's head = MLP with hidden_depth 1, built in train/bc.py).
 Parameters stay float32; each Linear runs in the module's ``dtype``.
 """
 

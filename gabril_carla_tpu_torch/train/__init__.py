@@ -1,1 +1,2 @@
-"""BC policy construction (port of gabril_carla_tpu.train.bc, policy part)."""
+"""BC training: models, loss and train step, optimizer, device-resident
+epochs, checkpoints and the Trainer (port of gabril_carla_tpu.train)."""

@@ -1,1 +1,1 @@
-"""Config surface (copy of gabril_carla_tpu.utils.config)."""
+"""Config surface, experiment logging and stage timers."""

@@ -1,8 +1,8 @@
 """Config surface: nested dicts with attribute access and the BC defaults.
 
 The part of gabril_carla_tpu/utils/config.py the slice needs (``Config``,
-``default_bc_config``), copied; YAML loading and the gaze-predictor defaults
-come with the training slice.
+``default_bc_config``), copied; YAML loading comes with cli/train_bc.py
+(ROADMAP.md M9), the gaze-predictor defaults with the gaze predictor (M11).
 """
 
 from __future__ import annotations

@@ -1,15 +1,19 @@
-"""Card tests of the port's render kernel (marker ``gpu``).
+"""Card tests of the port (marker ``gpu``): the render kernel, and BC
+training on the card.
 
 They need a CUDA card and skip without one; the CPU parity tests in
-tests/test_torch_render.py hold the plain version to the JAX package. This
-file imports neither JAX nor the JAX package, so it runs on a machine with
-only PyTorch:
+tests/test_torch_render.py and tests/test_torch_train*.py hold the CPU path
+to the JAX package. This file imports neither JAX nor the JAX package, so it
+runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_card.py -q
 
-The scenes are chip_smoke.py's (run from the repo root, as above). Bar:
-chip_smoke.py's, at most FLIP_PX pixels a frame off by more than 1e-5, as
-kernel and plain version visit the same rows and boxes.
+The scenes and the training checks are chip_smoke.py's (run from the repo
+root, as above). Bars: chip_smoke.py's; for the kernel at most FLIP_PX
+pixels a frame off by more than 1e-5, as kernel and plain version visit the
+same rows and boxes; for training, every gaze x dropout method's metrics
+within LOSS_RTOL and gradients within GRAD_FRAC of their leaf's scale of the
+same code on the CPU.
 """
 
 import itertools
@@ -17,13 +21,17 @@ import itertools
 import pytest
 import torch
 
-from chip_smoke import (FLIP_PX, _crossing_scene, _crowded, _mid_route, _tight_loop, off_pixels,
-                        operands, single_route)
+from chip_smoke import (FLIP_PX, GRAD_FRAC, LOSS_RTOL, _crossing_scene, _crowded, _mid_route,
+                        _tight_loop, bench_batch, bench_train_cfg, card_vs_cpu, off_pixels, operands,
+                        single_route)
 from gabril_carla_tpu_torch.data.tasks import seen_routes
 from gabril_carla_tpu_torch.env.env import DrivingEnv
 from gabril_carla_tpu_torch.env.world import load_benchmark_specs, to_torch
 from gabril_carla_tpu_torch.ops import raster as R
 from gabril_carla_tpu_torch.ops import render_kernel as K
+from gabril_carla_tpu_torch.train.bc import (DROPOUT_METHODS, GAZE_METHODS, init_bc_state,
+                                             make_bc_train_step)
+from gabril_carla_tpu_torch.train.optim import build_optimizer
 
 pytestmark = pytest.mark.gpu
 
@@ -109,3 +117,27 @@ def test_wrapper_rejects_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="aligned"):
         K.render_from_operands(torch.zeros(1, 18, device=cuda), rows,
                                torch.zeros(1, 32, 8, device=cuda))
+
+
+@pytest.mark.parametrize("dropout", DROPOUT_METHODS)
+@pytest.mark.parametrize("gaze", GAZE_METHODS)
+def test_train_method_matches_cpu(cuda, gaze, dropout):
+    loss_gap, grad_gap = card_vs_cpu(gaze, dropout)
+    assert loss_gap <= LOSS_RTOL and grad_gap <= GRAD_FRAC, (loss_gap, grad_gap)
+
+
+def test_bench_config_train_steps(cuda):
+    """Two steps at bench_train.py's configuration (batch 2000, Reg, bf16):
+    finite, loss_reg > 0, and every parameter moved by the second (the
+    warmup schedule's rate is 0 at the first)."""
+    cfg = bench_train_cfg()
+    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+    models, state0 = init_bc_state(cfg, torch.Generator(device=cuda).manual_seed(0), tx)
+    step = make_bc_train_step(models, cfg)
+    batch = bench_batch(cfg, cfg.data["batch_size"], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, _ = step(state0, batch, gen)
+    state, metrics = step(state, batch, gen)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values()) and float(metrics["loss_reg"]) > 0
+    moved = [k for k in state.params if not torch.equal(state.params[k], state0.params[k])]
+    assert len(moved) == len(state.params), set(state.params) - set(moved)

@@ -4,7 +4,8 @@ train/bc.py, convert.py).
 Converted flax parameters give the actions of gabril_carla_tpu's
 make_bc_policy_fn on the same frames: float32 within atol 1e-4 (both run
 f32 convolutions on the CPU; only the summation order differs), bf16 within
-the bound stated in test_bf16_policy_matches.
+the bound stated in test_bf16_policy_matches. Every gaze x dropout input
+branch with heat: tests/test_torch_policy_branches.py.
 """
 
 import jax
@@ -17,6 +18,7 @@ import gabril_carla_tpu.train.bc as JB
 from gabril_carla_tpu.models.heads import MLP as FlaxMLP
 from gabril_carla_tpu.utils import default_bc_config
 from gabril_carla_tpu_torch import convert
+from gabril_carla_tpu_torch.models.encoder import latent_hw
 from gabril_carla_tpu_torch.models.heads import MLP
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
@@ -78,12 +80,12 @@ def test_flatten_permutation():
     """A Dense over an NHWC flatten (flax PreActor) equals a Linear over the
     NCHW flatten with the converted kernel."""
     rng = np.random.default_rng(1)
-    h, w = PB.LATENT_HW
+    h, w = latent_hw(180, 320)
     c = 5
     z = rng.standard_normal((3, h, w, c))
     kernel = rng.standard_normal((h * w * c, 4))
     want = z.reshape(3, -1) @ kernel
-    got = np.transpose(z, (0, 3, 1, 2)).reshape(3, -1) @ convert.flatten_rows_nhwc_to_nchw(kernel, c)
+    got = np.transpose(z, (0, 3, 1, 2)).reshape(3, -1) @ convert.flatten_rows_nhwc_to_nchw(kernel, c, (h, w))
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
@@ -112,9 +114,26 @@ def test_init_is_seeded_orthogonal():
     assert all(not v.any() for k, v in a.items() if k.endswith("bias"))
 
 
+def test_latent_size_follows_the_frames():
+    """The pre-actor is sized from img_height x img_width, as flax's Dense
+    infers it: 180x320 -> 20x38, 24x48 -> 1x4, 96x160 -> 10x18."""
+    assert latent_hw(180, 320) == (20, 38) and latent_hw(24, 48) == (1, 4)
+    cfg = cfg_for("small", "float32", port=True)
+    cfg["data"].update(img_height=96, img_width=160)
+    models = PB.build_bc_models(cfg, device="cpu")
+    z = models.encoder(torch.zeros(1, 2, 96, 160))
+    assert z.shape[2:] == latent_hw(96, 160) == (10, 18)
+    assert models.pre_actor.fc.in_features == 8 * 10 * 18
+
+
 @pytest.mark.parametrize("gaze,dropout", [("Mask", "None"), ("Reg", "None"), ("None", "GMD")])
 def test_unported_methods_raise(gaze, dropout):
+    """These combinations raised NotImplementedError until the training
+    slice; now they build, and their policy runs with heat."""
     cfg = cfg_for("small", "float32", port=True)
     cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PB.build_bc_models(cfg, device="cpu")
+    models = PB.build_bc_models(cfg, device="cpu")
+    params = PB.init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+    obs, heat = torch.rand(2, 180, 320, 2), torch.rand(2, 180, 320, 2)
+    out = PB.make_bc_policy_fn(models, cfg)(params, obs, heat)
+    assert out.shape == (2, 7) and torch.isfinite(out).all()

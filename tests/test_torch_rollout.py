@@ -113,8 +113,9 @@ def test_rollout_checks_draws():
 
 def test_port_runs_without_jax():
     """In a fresh interpreter where jax and flax cannot be imported, every
-    module of the port imports and a 3-tick CPU rollout runs; no module of
-    the JAX package gets loaded."""
+    module of the port imports, a 3-tick CPU rollout runs and so does one
+    CPU train step (Reg with GMD); no module of the JAX package gets
+    loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
@@ -135,6 +136,17 @@ def test_port_runs_without_jax():
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=3)
         st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, device="cpu")
         assert trace.shape == (3, 1, 2) and bool(torch.isfinite(trace).all())
+        from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
+        from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step
+        from gabril_carla_tpu_torch.train.optim import build_optimizer
+        cfg["gaze"]["method"], cfg["dropout"]["method"] = "Reg", "GMD"
+        cfg["data"].update(img_height=24, img_width=48)
+        tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, 2)
+        models, state = init_bc_state(cfg, torch.Generator().manual_seed(0), tx, device="cpu")
+        ds = BCDataset(synthetic_episodes(n_demos=1, steps=4, img_hw=(24, 48)), frame_stack=2)
+        batch = {k: torch.from_numpy(v) for k, v in ds.sample([0, 1, 2, 3]).items()}
+        new, metrics = make_bc_train_step(models, cfg)(state, batch, torch.Generator().manual_seed(1))
+        assert new.step == 1 and bool(torch.isfinite(metrics["loss"])) and float(metrics["loss_reg"]) > 0
         bad = [m for m in sys.modules if m == "gabril_carla_tpu" or m.startswith("gabril_carla_tpu.")]
         assert not bad, bad
         print("ok")
