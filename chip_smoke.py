@@ -34,14 +34,45 @@ Phases, each fatal on failure:
      draws given) against the same code on the CPU, within LOSS_RTOL and
      GRAD_FRAC; then one bf16 step of each at full width, batch 16, finite;
   9. the Trainer: 2 device-resident epochs at full width, batch 64, into a
-     temporary directory, ending with a finite loss, ep2 and params.json.
-Prints a JSON line of kernel records, a JSON line of the train step's
-numbers, the card line, and last {"ok": true, "device": {...}}. Exits
-non-zero without them when there is no CUDA device or any phase fails.
+     temporary directory, ending with a finite loss, ep2 and params.json;
+ 10. the gaze-predictor train step (AutoEncoder, batch 256, bf16, full
+     width, batch resident on the card): one warm-up step, then GAZE_STEPS
+     timed with CUDA events; samples/s, step ms, FLOPs and their share of
+     the bf16 peak, peak memory, a profiler window; fatal unless the loss is
+     finite and every parameter group moved; then UNet steps, finite;
+ 11. heat rollouts on the main path's 256 worlds, HEAT_TICKS ticks each,
+     the throttle's bias at THROTTLE_BIAS: Mask with a frozen AutoEncoder
+     predictor, GMD with analytic gaze, and the confounded two-pass (gaze
+     None); run once untimed (heat bounds recorded), once timed; steps/s,
+     each stage's wall ms and a profiler window over 10 ticks; fatal unless
+     the render kernel launched ticks + 1 times, the heat lies in [0, 1],
+     the scores are finite, the median world moved over MOVED_M and some
+     world scored, and the kernel matches its plain version at the final
+     state;
+ 12. the entry points end to end in a temporary directory: the gaze
+     predictor and a Mask policy trained through the CLIs, eval_routes on
+     the 20 real routes x 1 seed (one stats.json each, held to its pair,
+     and aggregate.json; some pair must score), calc_scores reproducing the
+     aggregate's mean, a resumed eval_routes with nothing left to do, and
+     the pairs in reverse order writing the same records;
+ 13. card against CPU at the CPU tests' widths: the AutoEncoder's and the
+     UNet's float32 forward and loss (LOSS_RTOL), their gradients
+     (GRAD_FRAC) in float64, and the AutoEncoder's also in float32; the
+     UNet's float32 gradients and how far input noise moves its float64
+     ones are read (gaze_agrees says why); analytic gaze on the 20 routes
+     after COMPARE_TICKS ticks (within 1e-4, apart from slots whose hazard
+     scores tie within 1e-6 relative).
+Prints JSON lines of the kernel records, the train step's, the gaze
+predictor step's and the heat rollouts' numbers, the card line, and last
+{"ok": true, "device": {...}}. Exits non-zero without them when there is no
+CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -62,7 +93,20 @@ PEAK_BF16_S = 989e12  # H100 SXM dense bf16
 # bench_train.py's step counted from the shapes: the encoder's convs and the
 # pre-actor are 1.80 GFLOP a sample forward, x3 for forward and backward
 FLOPS_COUNTED = 1.80e9 * 3 * TRAIN_BATCH
-LOSS_RTOL, GRAD_FRAC = 1e-4, 1e-3  # phase 8: card against CPU
+LOSS_RTOL, GRAD_FRAC = 1e-4, 1e-3  # phases 8 and 13: card against CPU
+GAZE_BATCH, GAZE_STEPS = 256, 20  # phase 10: the gaze config's batch, timed steps
+HEAT_TICKS = 50  # phase 11
+EVAL_STEPS = 60  # phase 12
+# phases 11 and 12: the untrained policies' throttle bias, raised so that
+# the worlds drive (tests/test_torch_rollout_heat.py's nudge); a world has
+# driven once it is MOVED_M from where it stood after the warm-up ticks
+THROTTLE_BIAS, MOVED_M = 0.6, 1.0
+# the UNet's conv biases whose output channels are each a GroupNorm group of
+# their own (8 channels, 8 groups): the norm removes them, so their exact
+# gradient is 0 and any computed one is rounding noise
+UNET_NULL = ("e1.convs.0.bias", "e1.convs.1.bias", "d1.convs.0.bias", "d1.convs.1.bias")
+GAZE_TIE_RTOL = 1e-6  # phase 13: hazard scores this close may swap slots
+KINK_NOISE = (1e-9, 1e-6)  # phase 13: relative input noise, below and at float32's differences
 
 
 def log(msg):
@@ -188,41 +232,55 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def breakdown(spec, params, policy, cfg, ticks=10):
-    """Where a tick's time goes at the main path's batch: the wall time of
-    each stage, synchronised around it, then a profiler window over a short
-    rollout: the device's busy share and the kernels that fill it."""
-    from gabril_carla_tpu_torch.env.env import DRAWS_PER_STEP, DrivingEnv
-    from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
-    from gabril_carla_tpu_torch.ops.raster import render_frame
+def tick_draws(b: int, ticks: int = 10) -> torch.Tensor:
+    """Seeded env draws for the short rollouts that phases 6 and 11 time."""
+    from gabril_carla_tpu_torch.env.env import DRAWS_PER_STEP
 
-    env = DrivingEnv()
-    b = spec.route_len.shape[0]
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    draws = torch.rand((ticks, b, DRAWS_PER_STEP), generator=gen, device="cuda")
-    wall = {"render": 0.0, "policy": 0.0, "env step": 0.0}
+    return torch.rand((ticks, b, DRAWS_PER_STEP), generator=torch.Generator(device="cuda").manual_seed(4),
+                      device="cuda")
+
+
+def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
+    """Where a tick's time goes: make_rollout_fn's own loop over ``ticks``
+    ticks, the functions it calls wrapped so that each stage is synchronised
+    around it: render (operand prep and K1; the reset's frame is spread over
+    the ticks), heat (the frozen predictor, or analytic gaze and its splat),
+    policy (both passes of the confounded two-pass), overlay, env step.
+    Returns wall ms per tick; a stage that the path does not run reads 0."""
+    from unittest import mock
+
+    from gabril_carla_tpu_torch.env.env import DrivingEnv
+    from gabril_carla_tpu_torch.eval import rollout as RO
+    from gabril_carla_tpu_torch.ops.heatmap import GazeHeatmapper
+
+    wall = dict.fromkeys(("render", "heat", "policy", "overlay", "env step"), 0.0)
 
     def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall[name] += (time.perf_counter() - t0) * 1e3 / ticks
-        return out
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall[name] += (time.perf_counter() - t0) * 1e3 / ticks
+            return out
+        return run
 
-    with torch.inference_mode():
-        state = env.reset(spec)
-        frames = render_frame(spec, state)[..., None].repeat(1, 1, 1, cfg.data["frame_stack"])
-        for t in range(ticks):
-            frame = timed("render", lambda: render_frame(spec, state))
-            frames = torch.cat([frames[..., 1:], frame[..., None]], -1)
-            action = timed("policy", lambda: policy(params, frames))
-            state = timed("env step", lambda: env.step(spec, state, action, draws[t]))
-    log("[breakdown] wall ms per tick, each stage synchronised: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
+    class Env(DrivingEnv):
+        step = timed("env step", DrivingEnv.step)
 
-    rollout = make_rollout_fn(policy, cfg, steps=ticks)
-    profile_window("breakdown", f"{ticks} ticks", lambda: rollout(spec, params, draws=draws))
+    class Heatmapper(GazeHeatmapper):
+        heatmaps = timed("heat", GazeHeatmapper.heatmaps)
+
+    kw = dict(kw)
+    if kw.get("gaze_predictor_apply") is not None:
+        kw["gaze_predictor_apply"] = timed("heat", kw["gaze_predictor_apply"])
+    with mock.patch.multiple(RO, DrivingEnv=Env, GazeHeatmapper=Heatmapper,
+                             render_frame=timed("render", RO.render_frame),
+                             analytic_gaze=timed("heat", RO.analytic_gaze),
+                             confounded_overlay=timed("overlay", RO.confounded_overlay)):
+        rollout = RO.make_rollout_fn(timed("policy", policy), cfg, steps=ticks, **kw)
+        rollout(spec, params, draws=tick_draws(spec.route_len.shape[0], ticks))
+    return wall
 
 
 def profile_window(tag, what, fn, top=8):
@@ -486,6 +544,393 @@ def trainer_phase():
         raise SystemExit("chip_smoke: the Trainer did not end with a finite loss, ep2 and params.json")
 
 
+# --- the gaze-heat eval path (phases 10-13) -----------------------------------
+
+
+def tree_to(x, device):
+    """A WorldSpec or SceneState (dataclasses of tensors) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(**{f.name: tree_to(getattr(x, f.name), device) for f in dataclasses.fields(x)})
+
+
+def gaze_cfg(arch="autoencoder", batch_size=GAZE_BATCH, tiny=False):
+    """default_gaze_config (full width, 180x320, frame stack 2, bf16), or
+    the CPU tests' widths in float32 with ``tiny``."""
+    from gabril_carla_tpu_torch.utils.config import default_gaze_config
+
+    cfg = default_gaze_config()
+    cfg["data"]["batch_size"] = batch_size
+    cfg["model"]["arch"] = arch
+    if tiny:
+        cfg["model"].update(embedding_dim=4, num_hiddens=8, num_residual_layers=1, num_residual_hiddens=4)
+        cfg["training"]["compute_dtype"] = "float32"
+    return cfg
+
+
+def gaze_phase(card: str) -> dict:
+    """Phase 10: the gaze-predictor train step at the gaze config's batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gabril_carla_tpu_torch.train.gaze_predictor import init_gaze_state, make_gaze_train_step
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+
+    out = {"card": card}
+    for arch in ("autoencoder", "unet"):
+        cfg = gaze_cfg(arch)
+        tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+        (model, hm), state0 = init_gaze_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+        step = make_gaze_train_step(model, hm, cfg)
+        batch = bench_batch(cfg, GAZE_BATCH, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state0, batch)  # warm-up
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        n = GAZE_STEPS if arch == "autoencoder" else 3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / n
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(metrics["loss"])
+        groups = sorted({k.split(".")[0] for k in state.params})
+        moved = {g: any(not torch.equal(state.params[k], state0.params[k])
+                        for k in state.params if k.startswith(g + ".")) for g in groups}
+        finite = math.isfinite(loss) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
+        with FlopCounterMode(display=False) as counter:
+            step(state, batch)
+        flops = counter.get_total_flops()
+        bound_ms = flops / PEAK_BF16_S * 1e3
+        log(f"[gaze] {arch} step (batch {GAZE_BATCH}, bf16, full width): first step {first_ms:.1f} ms; "
+            f"{n} steps {step_ms:.3f} ms each, {GAZE_BATCH / step_ms * 1e3:.1f} samples/s; FLOPs per "
+            f"step {flops / 1e12:.4f} T (FlopCounterMode), {100 * bound_ms / step_ms:.1f}% of the "
+            f"{PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16 peak; peak memory {peak / 2**30:.2f} GiB; loss "
+            f"{loss:.5f} after {state.step} steps; groups moved {moved}; on {card}")
+        if not finite or (arch == "autoencoder" and not all(moved.values())):
+            raise SystemExit(f"chip_smoke: the {arch} gaze step gave non-finite results or left a "
+                             "parameter group unchanged")
+        busy, span = profile_window(f"gaze {arch}", "3 steps",
+                                    lambda: [step(state, batch) for _ in range(3)])
+        out[arch] = {"samples_per_s": GAZE_BATCH / step_ms * 1e3, "step_ms": step_ms,
+                     "first_step_ms": first_ms, "steps_timed": n, "flops_per_step": flops,
+                     "bf16_peak_share": bound_ms / step_ms, "peak_mem_gib": peak / 2**30, "loss": loss,
+                     "device_busy_share": busy / span}
+    return out
+
+
+def heat_cases(dev):
+    """Phase 11's policies at full width, bf16, random weights from seed 0,
+    the throttle's bias raised to THROTTLE_BIAS so that the worlds drive:
+    name -> (cfg, models, params, make_rollout_fn keywords)."""
+    from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params
+    from gabril_carla_tpu_torch.train.gaze_predictor import (build_gaze_models, init_gaze_params,
+                                                             make_gaze_predictor_apply)
+    from gabril_carla_tpu_torch.utils.config import default_bc_config
+
+    cases = {}
+    for name, gaze, dropout in (("mask_predictor", "Mask", "None"), ("gmd_analytic", "None", "GMD"),
+                                ("confounded", "None", "None")):
+        cfg = default_bc_config()
+        cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
+        cfg["training"]["compute_dtype"] = "bfloat16"
+        models = build_bc_models(cfg, dev)
+        params = init_bc_params(models, cfg, torch.Generator(device=dev).manual_seed(0))
+        params["actor.fc2.bias"][0] = THROTTLE_BIAS
+        kw = {"gmd_analytic": dict(use_analytic_gaze=True),
+              "confounded": dict(confounded=True)}.get(name, {})
+        if name == "mask_predictor":
+            gp, _ = build_gaze_models(gaze_cfg(), dev)
+            gp_params = init_gaze_params(gp, torch.Generator(device=dev).manual_seed(5))
+            params = {**params, "gaze_predictor": gp_params}
+            kw = dict(gaze_predictor_apply=make_gaze_predictor_apply(gp))
+        cases[name] = (cfg, models, params, kw)
+    return cases
+
+
+def heat_phase(spec, card: str) -> tuple[dict, float]:
+    """Phase 11: the three heat rollouts on the main path's worlds."""
+    from gabril_carla_tpu_torch.env.criteria import compute_score
+    from gabril_carla_tpu_torch.eval.rollout import WARMUP_STEPS, make_rollout_fn
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.train.bc import make_bc_policy_fn
+
+    out, max_err = {}, 0.0
+    b = spec.route_len.shape[0]
+    for name, (cfg, models, params, kw) in heat_cases("cuda").items():
+        policy = make_bc_policy_fn(models, cfg)
+        bounds = []
+
+        def probe(p, obs, heat=None):
+            if heat is not None:
+                bounds.append(torch.stack([heat.amin().float(), heat.amax().float()]))
+            return policy(p, obs, heat)
+
+        make_rollout_fn(probe, cfg, steps=HEAT_TICKS, **kw)(
+            spec, params, torch.Generator(device="cuda").manual_seed(2))
+        rollout = make_rollout_fn(policy, cfg, steps=HEAT_TICKS, **kw)
+        torch.cuda.synchronize()
+        render_kernel.launches = 0
+        t0 = time.perf_counter()
+        state, trace = rollout(spec, params, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = render_kernel.launches
+        sc = compute_score(spec, state)["score_composed"]
+        moved = (trace[-1] - trace[WARMUP_STEPS - 1]).norm(dim=-1)
+        drove = float(moved.median()) > MOVED_M and bool((sc > 0).any())
+        lo_hi = torch.stack(bounds).cpu() if bounds else None
+        heat_ok = lo_hi is None or (float(lo_hi[:, 0].min()) >= 0.0 and float(lo_hi[:, 1].max()) <= 1.0)
+        stages = stage_breakdown(spec, params, policy, cfg, kw)
+        busy, span = profile_window(f"heat {name}", "10 ticks", lambda: make_rollout_fn(
+            policy, cfg, steps=10, **kw)(spec, params, draws=tick_draws(b)))
+        log(f"[heat] {name}: {b} worlds x {HEAT_TICKS} ticks in {dt:.3f} s, {b * HEAT_TICKS / dt:.1f} env "
+            f"steps/s; render launches {launches} (want {HEAT_TICKS + 1}); heat in "
+            + ("[%.4g, %.4g]" % (float(lo_hi[:, 0].min()), float(lo_hi[:, 1].max())) if lo_hi is not None
+               else "(no heat: gaze None)")
+            + f"; moved median {float(moved.median()):.3f} m, max {float(moved.max()):.3f} m; "
+            f"score_composed mean {sc.mean().item():.4f}, > 0 in {int((sc > 0).sum())} worlds; on {card}")
+        log(f"[heat] {name}: wall ms per tick, each stage synchronised: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        if launches != HEAT_TICKS + 1 or not heat_ok or not torch.isfinite(sc).all() \
+                or not torch.isfinite(trace).all() or not drove:
+            raise SystemExit(f"chip_smoke: heat rollout {name}: {launches} render launches (want "
+                             f"{HEAT_TICKS + 1}), heat out of [0, 1], non-finite scores, or the "
+                             f"median world moved no more than {MOVED_M} m or no score is above 0")
+        max_err = max(max_err, kernel_vs_plain(f"heat rollout {name} at its final state",
+                                               operands(spec, state)))
+        out[name] = {"steps_per_s": b * HEAT_TICKS / dt, "wall_s": dt, "launches": launches,
+                     "score_mean": sc.mean().item(), "worlds_scored": int((sc > 0).sum()),
+                     "moved_median_m": float(moved.median()), "stages_ms": stages, "ticks": HEAT_TICKS,
+                     "device_busy_share": busy / span}
+    return out, max_err
+
+
+def entry_points_phase(ids, specs) -> int:
+    """Phase 12: train the gaze predictor and a Mask policy through the CLIs,
+    evaluate the 20 real routes x 1 seed, read the tree back. ``specs`` are
+    the routes' compiled worlds (in ``ids``' order), each stats.json is held
+    to its pair: route id, seed and route length, and a run of the pairs in
+    reverse order must write the same records (all but the wall-clock
+    duration_system): each world's draws and compute are its own, so a
+    record that went to another pair would differ. The Mask policy learns the
+    synthetic episodes' zero-mean actions, so its saved throttle bias is
+    raised to THROTTLE_BIAS before the eval, and some world must score.
+    Returns the render kernel's launches in the eval run."""
+    import tempfile
+    from pathlib import Path
+
+    from gabril_carla_tpu_torch.cli import calc_scores, eval_routes, train_bc, train_gaze_predictor
+    from gabril_carla_tpu_torch.data.tasks import TASK_TO_ROUTE
+    from gabril_carla_tpu_torch.eval.stats import ROUND
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.train.checkpoint import restore_params, save_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["data.batch_size=64", "training.device_data=true", f"logging.log_dir={tmp}"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_gaze_predictor.main(common + ["training.epochs=2", "data.task=Gaze"])
+        gaze_ckpt = next(Path(tmp).glob("Gaze/*/checkpoints"))
+        t_gaze = time.perf_counter() - t0
+        with contextlib.redirect_stdout(buf):
+            train_bc.main(common + ["training.epochs=1", "data.task=Bc", "gaze.method=Mask",
+                                    f"gaze.predictor_path={gaze_ckpt}"])
+        bc_ckpt = next(Path(tmp).glob("Bc/*/checkpoints"))
+        t_bc = time.perf_counter() - t0 - t_gaze
+        manifest = json.loads((gaze_ckpt / "params.json").read_text())
+        sd = restore_params(bc_ckpt / "ep1")
+        sd["actor.fc2.bias"][0] = THROTTLE_BIAS
+        save_params(bc_ckpt, 1, sd)
+        # the seen and unseen test routes in one batch
+        pairs = [(r, 400) for r in ids]
+        TASK_TO_ROUTE["Real20_"] = {"test": pairs}
+        out = Path(tmp) / "eval"
+        args = ["--checkpoint", str(bc_ckpt), "--task", "Real20_", "--steps", str(EVAL_STEPS),
+                "--out", str(out)]
+        render_kernel.launches = 0
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_routes.main(args)
+        t_eval = time.perf_counter() - t1
+        launches = render_kernel.launches
+        files = sorted(out.glob("route_*/seed_*/stats.json"))
+        recs = {(r, s): json.loads(f.read_text()) for r, s in pairs
+                if (f := out / f"route_{r}" / f"seed_{s}" / "stats.json").exists()}
+        agg = json.loads((out / "aggregate.json").read_text())
+        calc = io.StringIO()
+        with contextlib.redirect_stdout(calc), contextlib.redirect_stderr(io.StringIO()):
+            calc_scores.main(["--stats_dir", str(out)])
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            eval_routes.main(args)
+        TASK_TO_ROUTE["Real20_"] = {"test": pairs[::-1]}
+        rev = Path(tmp) / "eval_reversed"
+        with contextlib.redirect_stdout(buf):
+            eval_routes.main(args[:-1] + [str(rev)])
+        TASK_TO_ROUTE.pop("Real20_")
+        unequal = [(r, s) for r, s in pairs if (r, s) not in recs or without_wall(recs[r, s]) != without_wall(
+            json.loads((rev / f"route_{r}" / f"seed_{s}" / "stats.json").read_text()))]
+    calc_mean = json.loads(calc.getvalue())["mean"]
+    mismatched = [(r, s) for i, (r, s) in enumerate(pairs) if (r, s) in recs and (
+        recs[r, s]["route_id"] != f"RouteScenario_{r}" or recs[r, s]["seed"] != s
+        or recs[r, s]["meta"]["route_length"] != round(float(specs.route_len[i]), ROUND))]
+    routed = sorted(rec["scores"]["score_route"] for rec in recs.values())
+    scored = sum(rec["scores"]["score_composed"] > 0 for rec in recs.values())
+    log(f"[entry] gaze predictor 2 device-resident epochs at batch 64 in {t_gaze:.1f} s (manifest "
+        f"model_type {manifest.get('model_type')!r}); Mask BC 1 epoch in {t_bc:.1f} s; eval_routes on "
+        f"{len(ids)} routes x 1 seed, {EVAL_STEPS} steps, in {t_eval:.1f} s: {len(files)} stats.json, "
+        f"aggregate mean {agg['mean']:.4f} over {agg['n']}, render launches {launches} (want "
+        f"{EVAL_STEPS + 1}); calc_scores mean {calc_mean:.4f}; route % median "
+        f"{routed[len(routed) // 2] if routed else float('nan'):.4f}, {scored} pairs scored > 0; pairs "
+        f"whose stats.json names another route, seed or route length: {mismatched}; pairs whose record "
+        f"differs in the reversed run: {unequal}; resumed call: "
+        f"{again.getvalue().strip()!r}")
+    # calc_scores reads the files in path order, eval_routes wrote them in
+    # pair order: the means may differ in the summation's last bit
+    ok = (len(files) == len(ids) and agg["n"] == len(ids) and len(recs) == len(pairs)
+          and not mismatched and not unequal and scored > 0
+          and abs(calc_mean - agg["mean"]) <= 1e-9 * max(1.0, abs(agg["mean"]))
+          and "Nothing to do" in again.getvalue() and manifest.get("model_type") == "gaze_predictor"
+          and launches == EVAL_STEPS + 1)
+    if not ok:
+        raise SystemExit("chip_smoke: the entry points did not write every stats.json and aggregate.json, "
+                         "a stats.json belongs to another pair or differs in the reversed run, no pair "
+                         "scored, calc_scores disagreed, "
+                         f"the resumed call had work left, or K1 launched {launches} times (want "
+                         f"{EVAL_STEPS + 1})")
+    return launches
+
+
+def without_wall(rec: dict) -> dict:
+    """A stats.json record with its wall-clock duration_system fields dropped."""
+    rec = json.loads(json.dumps(rec))
+    for meta in (rec["meta"], rec["_checkpoint"]["global_record"]["meta"],
+                 rec["_checkpoint"]["records"][0]["meta"]):
+        meta.pop("duration_system")
+    return rec
+
+
+def gaze_card_vs_cpu(arch) -> dict:
+    """Phase 13: the gaze predictor at the CPU tests' widths on the card and
+    on the CPU, same parameters and batch. Gaps, each the largest difference
+    over the CPU's largest magnitude (a gradient's per leaf, then the worst
+    leaf, UNET_NULL left out):
+      forward, loss: float32, card against CPU;
+      grads32: float32 gradients (gaze_loss_and_grads), card against CPU;
+      grads64: float64 gradients (model, parameters, input and target in
+        float64), card against CPU;
+      card32_64, cpu32_64: each float32 gradient against the CPU's float64;
+      smooth, kink: how far the card's float64 gradients move when the input
+        is scaled by 1 + KINK_NOISE[i] * N(0, 1)."""
+    from torch.func import functional_call
+
+    from gabril_carla_tpu_torch.train.gaze_predictor import (build_gaze_models, gaze_loss_and_grads,
+                                                             init_gaze_params)
+
+    cfg = gaze_cfg(arch, 2, tiny=True)
+    cpu, hm = build_gaze_models(cfg, "cpu")
+    params = init_gaze_params(cpu, torch.Generator().manual_seed(0))
+    batch = bench_batch(cfg, 2, "cpu")
+    card, hm_card = build_gaze_models(cfg, "cuda")
+    p_card = {k: v.cuda() for k, v in params.items()}
+    b_card = {k: v.cuda() for k, v in batch.items()}
+    obs, target, _ = hm.prepare_for_gaze_predictor(batch["obs_seq"], batch["gaze_seq"], 2, grayscale=True)
+    with torch.no_grad():
+        f_cpu = functional_call(cpu, params, (obs,))
+        f_card = functional_call(card, p_card, (obs.cuda(),)).cpu()
+    l_cpu, _, g_cpu = gaze_loss_and_grads(cpu, hm, cfg, params, batch)
+    l_card, _, g_card = gaze_loss_and_grads(card, hm_card, cfg, p_card, b_card)
+
+    def grads64(dev, noise=0.0):
+        model, _ = build_gaze_models(cfg, dev)
+        model = model.double()
+        for mod in model.modules():
+            if hasattr(mod, "dtype"):
+                mod.dtype = torch.float64
+        x = obs.double() * (1.0 + noise * torch.randn(obs.shape, dtype=torch.float64,
+                                                       generator=torch.Generator().manual_seed(9)))
+        live = {k: v.to(dev, torch.float64).requires_grad_() for k, v in params.items()}
+        loss = torch.mean((functional_call(model, live, (x.to(dev),)) - target.to(dev, torch.float64)) ** 2)
+        return dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+
+    def gap(a, b):
+        d = float((a.cpu().double() - b.cpu().double()).abs().max())
+        return d / float(b.abs().max()) if d else 0.0
+
+    def worst(a, b):
+        return max(gap(a[k], b[k]) for k in b if k not in UNET_NULL)
+
+    g64_cpu, g64_card = grads64("cpu"), grads64("cuda")
+    return {"forward": gap(f_card, f_cpu), "loss": gap(l_card, l_cpu), "grads32": worst(g_card, g_cpu),
+            "grads64": worst(g64_card, g64_cpu), "card32_64": worst(g_card, g64_cpu),
+            "cpu32_64": worst(g_cpu, g64_cpu), "smooth": worst(grads64("cuda", KINK_NOISE[0]), g64_card),
+            "kink": worst(grads64("cuda", KINK_NOISE[1]), g64_card)}
+
+
+def gaze_agrees(arch, gaps: dict) -> bool:
+    """Forward and loss within LOSS_RTOL in float32; gradients within
+    GRAD_FRAC of the CPU's, the AutoEncoder's in float32 and float64, the
+    UNet's in float64. The UNet's float32 gradients are read, not held:
+    its max pools and relus at 11x20 and 22x40, where one position weighs
+    about 1e-3 of a leaf's gradient, make the gradient jump when rounding
+    moves an activation across a kink. ``smooth`` and ``kink`` read it: the
+    float64 gradient follows input noise of 1e-9 linearly and jumps under
+    1e-6, the size of the float32 forward's card-to-CPU gap (``forward``).
+    So card and CPU agree in float32 only where they fall on the same side
+    of every kink; in float64 both do."""
+    grads = max(gaps["grads32"], gaps["grads64"]) if arch == "autoencoder" else gaps["grads64"]
+    return gaps["forward"] <= LOSS_RTOL and gaps["loss"] <= LOSS_RTOL and grads <= GRAD_FRAC
+
+
+def analytic_card_vs_cpu(spec, state, curv: bool):
+    """Phase 13: analytic_gaze on the card against the CPU. Returns (slots
+    off by more than 1e-4 whose hazard scores do not tie, tied slots, max
+    difference over the untied ones)."""
+    from gabril_carla_tpu_torch.ops import raster as R
+
+    spec_c, state_c = tree_to(spec, "cpu"), tree_to(state, "cpu")
+    got = R.analytic_gaze(spec, state, 5, curvature_anticipation=curv).cpu().reshape(-1, 5, 2)
+    want = R.analytic_gaze(spec_c, state_c, 5, curvature_anticipation=curv).reshape(-1, 5, 2)
+    _, _, score = R.actor_hazards(spec_c, state_c, *R._camera_basis(state_c.ego.pos, state_c.ego.yaw))
+    top = torch.sort(score, 1, descending=True).values[:, :5]  # ranks 0..4 of the actor slots
+    near = (top[:, :-1] - top[:, 1:]).abs() <= GAZE_TIE_RTOL * top[:, :-1].abs()
+    near &= torch.isfinite(top[:, 1:])
+    tied = torch.zeros(top.shape[0], 5, dtype=torch.bool)  # slot 0 is the road point
+    tied[:, 1:] = near[:, :4] | torch.cat([torch.zeros_like(near[:, :1]), near[:, :3]], 1)
+    off = ((got - want).abs() > 1e-4).any(-1) | ((got < 0) != (want < 0)).any(-1)
+    untied = ~tied
+    diff = (got - want).abs().amax(-1)
+    return int((off & untied).sum()), int(tied.sum()), float(diff[untied].max())
+
+
+def card_vs_cpu_phase(spec20, state40):
+    """Phase 13."""
+    for arch in ("autoencoder", "unet"):
+        g = gaze_card_vs_cpu(arch)
+        held = "float32 and float64" if arch == "autoencoder" else "float64"
+        log(f"[card-cpu] {arch} at the CPU tests' widths: float32 forward {g['forward']:.3g}, loss "
+            f"{g['loss']:.3g} (bar {LOSS_RTOL:g}); worst gradient gap of its leaf's scale, card against "
+            f"CPU: float32 {g['grads32']:.3g}, float64 {g['grads64']:.3g} (bar {GRAD_FRAC:g} in {held}); "
+            f"float32 against float64: card {g['card32_64']:.3g}, CPU {g['cpu32_64']:.3g}; the card's "
+            f"float64 gradient moved by input noise of {KINK_NOISE[0]:g}: {g['smooth']:.3g}, of "
+            f"{KINK_NOISE[1]:g}: {g['kink']:.3g}")
+        if not gaze_agrees(arch, g):
+            raise SystemExit(f"chip_smoke: the {arch} gaze predictor on the card disagrees with the CPU")
+    for curv in (False, True):
+        bad, tied, mx = analytic_card_vs_cpu(spec20, state40, curv)
+        log(f"[card-cpu] analytic gaze (curvature_anticipation={curv}), 20 routes after {COMPARE_TICKS} "
+            f"ticks: {bad} untied slots off by > 1e-4, {tied} slots in a tie within {GAZE_TIE_RTOL:g}; max "
+            f"difference over untied slots {mx:.3g}")
+        if bad:
+            raise SystemExit("chip_smoke: analytic gaze on the card disagrees with the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -594,20 +1039,46 @@ def main() -> int:
     log("[time] no single PyTorch call computes this function: library_ms is null")
 
     # 6. where the time goes
-    breakdown(spec, params, policy, cfg)
+    stages = stage_breakdown(spec, params, policy, cfg, {})
+    log("[breakdown] wall ms per tick, each stage synchronised: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    profile_window("breakdown", "10 ticks", lambda: make_rollout_fn(policy, cfg, steps=10)(
+        spec, params, draws=tick_draws(N_WORLDS)))
+    log(f"[phases] 1-6 in {time.perf_counter() - t_all:.1f} s")
 
     # 7-9. BC training
+    t_phase = time.perf_counter()
     train = train_phase(card)
     methods_phase()
     trainer_phase()
+    log(f"[phases] 7-9 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 10-13. the gaze-heat eval path
+    t_phase = time.perf_counter()
+    gaze = gaze_phase(card)
+    log(f"[phases] 10 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    heat, heat_err = heat_phase(spec, card)
+    max_err = max(max_err, heat_err)
+    log(f"[phases] 11 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    eval_launches = entry_points_phase(ids, base)
+    log(f"[phases] 12 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    card_vs_cpu_phase(spec20, state40)
+    log(f"[phases] 13 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
+    by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
+               "eval_routes": eval_launches}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}]}))
+        "launches_by_path": by_path, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}]}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"gaze_train": gaze}))
+    print(json.dumps({"heat_rollouts": heat}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1006,16 +1006,18 @@ def to_torch(spec: WorldSpec, device="cuda") -> WorldSpec:
                         for f in dataclasses.fields(WorldSpec)})
 
 
-def load_benchmark_specs(route_ids, junction_traffic: bool | None = None) -> WorldSpec:
-    """Stacked WorldSpec of the vendored benchmark routes ``route_ids``, with
-    the vendored per-town parked-vehicle tables (the JAX package's
-    ``load_benchmark_specs`` on its default paths)."""
+def load_benchmark_specs(route_ids, junction_traffic: bool | None = None,
+                         routes_file=None) -> WorldSpec:
+    """Stacked WorldSpec of the benchmark routes ``route_ids`` from
+    ``routes_file`` (a compiled route table; default the vendored
+    routes220.json.gz), with the vendored per-town parked-vehicle tables
+    (the JAX package's ``load_benchmark_specs`` on its default paths)."""
     from ..data.vendored import load_parked_npz, load_routes_json, parked_tables_path, routes_path
 
     if not route_ids:
         raise ValueError("load_benchmark_specs: route_ids must name at least "
                          "one route (e.g. [3100])")
-    routes = load_routes_json(routes_path(), list(route_ids))
+    routes = load_routes_json(routes_file or routes_path(), list(route_ids))
     tables = load_parked_npz(parked_tables_path())
     # pad every route to the batch's max scenario count so the specs stack
     # (bench2drive220 routes all carry exactly one -> K=1)

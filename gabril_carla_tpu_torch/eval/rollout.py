@@ -1,9 +1,18 @@
-"""Closed-loop evaluation: render -> policy -> env step, batched over worlds.
+"""Closed-loop evaluation: render -> heat -> policy -> env step, batched
+over worlds.
 
 Port of gabril_carla_tpu/eval/rollout.py. Where the JAX package scans one
 world's tick and vmaps it, every tick here runs all worlds at once in a
-Python loop: the render kernel once per tick (and once at reset), the
-policy on the stacked frames, then the env step.
+Python loop: the render kernel once per tick (and once at reset), the gaze
+heat where the method needs it, the policy on the stacked frames, then the
+env step.
+
+Heat comes from a frozen gaze predictor (``gaze_predictor_apply``, its
+output clamped to [0, 1], bc_agent.py:275-298) or from the scene graph
+(``use_analytic_gaze``: ops/raster.py analytic_gaze splatted at 180x320).
+``confounded`` runs the two-pass predict -> overlay -> re-predict of
+bc_agent.py:321-352 on the one rendered frame; the overlaid frame stays in
+the ring.
 
 Parity details kept: 10 warm-up no-op ticks (bc_agent.py:404), hard stop at
 fps*100 = 2000 ticks (bc_agent.py:407-411), a float32 [H, W, S] frame ring
@@ -21,10 +30,17 @@ import torch
 
 from ..env.env import DRAWS_PER_STEP, DrivingEnv
 from ..env.world import to_torch
-from ..ops.raster import render_frame
+from ..ops.heatmap import GazeHeatmapper
+from ..ops.raster import analytic_gaze, confounded_overlay, render_frame
 
 WARMUP_STEPS = 10
 HARD_STOP = 2000  # = fps * 100
+
+
+def needs_heat(cfg) -> bool:
+    """Whether the policy of ``cfg`` takes gaze heat at eval: the gaze
+    methods Mask, ViSaRL, AGIL and the dropouts GMD, IGMD."""
+    return cfg.gaze["method"] in ("Mask", "ViSaRL", "AGIL") or cfg.dropout["method"] in ("GMD", "IGMD")
 
 
 def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: bool = False,
@@ -36,16 +52,39 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
     frames [steps, B, H, W] with ``return_frames``. ``far_decimate`` and
     ``lower_window`` go to every ``render_frame`` call.
 
-    policy_fn(params, obs [B, H, W, S]) -> [B, 7] actions.
+    policy_fn(params, obs [B, H, W, S], heat [B, H, W, S] or None) -> [B, 7]
+    actions. gaze_predictor_apply(params["gaze_predictor"], obs) -> [B, H,
+    W, 1] heat, when the method needs one.
     """
-    if use_analytic_gaze or gaze_predictor_apply is not None or confounded:
-        raise NotImplementedError("analytic gaze, the gaze predictor and the confounded "
-                                  "two-pass are queued in ROADMAP.md (port queue)")
     s = cfg.data["frame_stack"]
     env = DrivingEnv()
+    heat_on = needs_heat(cfg)
+    if heat_on and gaze_predictor_apply is None and not use_analytic_gaze:
+        # zero heat would silently drive on an all-black input (Mask) or
+        # garbage-averaged latents (AGIL); the reference always runs the
+        # gaze predictor here (bc_agent.py:275-298)
+        raise ValueError(
+            f"gaze method {cfg.gaze['method']!r} / dropout {cfg.dropout['method']!r} "
+            "needs gaze heat at eval: pass gaze_predictor_apply (frozen predictor, "
+            "bc_agent.py:275-298 parity) or set use_analytic_gaze=True")
+    heatmapper = None
+    if heat_on and gaze_predictor_apply is None:
+        heatmapper = GazeHeatmapper(img_height=180, img_width=320,
+                                    gaze_sigma=cfg.gaze.get("mask_sigma", 30.0),
+                                    maxpoints=cfg.gaze.get("max_points", 5))
 
     def render(spec, state):
         return render_frame(spec, state, far_decimate=far_decimate, lower_window=lower_window)
+
+    def compute_heat(spec, state, params, obs):
+        if not heat_on:
+            return None
+        if gaze_predictor_apply is not None:
+            # the UNet head is an unbounded 1x1 conv: clamp (bc_agent.py:277-278)
+            pred = gaze_predictor_apply(params["gaze_predictor"], obs).clamp(0.0, 1.0)
+            return pred.repeat(1, 1, 1, s)
+        coords = analytic_gaze(spec, state, heatmapper.maxpoints)
+        return heatmapper.heatmaps(coords)[..., None].repeat(1, 1, 1, s)
 
     @torch.inference_mode()
     def rollout(spec, params, generator: torch.Generator | None = None,
@@ -67,7 +106,13 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
         for t in range(steps):
             frame = render(spec, state)
             frames = torch.cat([frames[..., 1:], frame[..., None]], -1)
-            action = policy_fn(params, frames)
+            action = policy_fn(params, frames, compute_heat(spec, state, params, frames))
+            if confounded:
+                # predict -> overlay -> re-predict; the overlaid frame stays in
+                # the ring, so older stack entries keep their own overlays
+                overlaid = confounded_overlay(frame, action)
+                frames = torch.cat([frames[..., :-1], overlaid[..., None]], -1)
+                action = policy_fn(params, frames, compute_heat(spec, state, params, frames))
             action = torch.where((state.t < WARMUP_STEPS)[:, None], noop, action)
             state = env.step(spec, state, action, draws[t])
             trace.append(frame if return_frames else state.ego.pos)
@@ -76,11 +121,18 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
     return rollout
 
 
+def to_device(params: dict, device) -> dict:
+    """A state dict, or one with a nested ``gaze_predictor`` state dict,
+    moved to ``device``."""
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
+
+
 def rollout_routes(specs, params, rollout_fn, seed: int = 0, draws=None, device="cuda"):
     """Run ``rollout_fn`` over a stacked numpy WorldSpec (env/world.py:
     load_benchmark_specs / stack_specs) on ``device``, with ``params`` moved
     there and the step draws from a generator seeded with ``seed``."""
     spec = to_torch(specs, device)
-    params = {k: v.to(device) for k, v in params.items()}
+    params = to_device(params, device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return rollout_fn(spec, params, generator=generator, draws=draws)

@@ -1,1 +1,1 @@
-"""Policy networks (port of gabril_carla_tpu.models)."""
+"""Policy and gaze-predictor networks (port of gabril_carla_tpu.models)."""

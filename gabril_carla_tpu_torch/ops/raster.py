@@ -281,3 +281,116 @@ def render_frame(spec, state, *, far_decimate: bool = False,
                                                far_decimate=far_decimate)
     return render_from_operands(cam_scalars, cols, cboxes, far_decimate=far_decimate,
                                 lower_window=lower_window)
+
+
+AHEAD_WIN = 80  # route rows ahead of the ego the actors are placed on
+
+
+def analytic_gaze(spec, state, max_points: int = 5,
+                  curvature_anticipation: bool = False) -> torch.Tensor:
+    """Gaze coords [B, max_points * 2] in [0, 1] (-1 invalid) from the scene
+    graph, for every world at once (the JAX package's is per world, and its
+    docstring gives the reasons).
+
+    Point 0 fixates the road about 15 m ahead along the route, or with
+    ``curvature_anticipation`` the tangent point of the coming curve at a
+    speed-scaled preview distance; the other slots take the visible actors
+    of highest hazard (actor_hazards), ties in index order as the stable
+    ``jnp.argsort`` keeps them.
+    """
+    from ..env.dynamics import polyline_point
+
+    ego = state.ego
+    cam, fwd, right = _camera_basis(ego.pos, ego.yaw)
+    s_now = ego.route_idx.float()
+    if curvature_anticipation:
+        # preview distance: time headway, clamped (8 m crawl .. 25 m fast)
+        look = (1.7 * ego.speed.clamp_min(2.0)).clamp(8.0, 25.0)
+        _, d_now = polyline_point(spec.route_xy, spec.route_dir, s_now, spec.n_route)
+        _, d_prev = polyline_point(spec.route_xy, spec.route_dir, s_now + look, spec.n_route)
+        # sin(heading change) over the preview; positive is a right turn
+        turn = d_now[:, 0] * d_prev[:, 1] - d_now[:, 1] * d_prev[:, 0]
+        look_eff = look / (1.0 + 2.0 * turn.abs())
+        p_fix, d_fix = polyline_point(spec.route_xy, spec.route_dir, s_now + look_eff,
+                                      spec.n_route)
+        inside = torch.stack([-d_fix[:, 1], d_fix[:, 0]], -1)  # the driver's right normal
+        ahead = p_fix + (turn.clamp(-1.0, 1.0) * (0.5 * C.LANE_WIDTH))[:, None] * inside
+    else:
+        ahead, _ = polyline_point(spec.route_xy, spec.route_dir, s_now + 15.0, spec.n_route)
+    ur, vr, dr = (x[:, 0] for x in _project(cam, fwd, right, ahead[:, None], 0.0))
+    road_ok = (dr > 1.0) & (ur >= 0) & (ur < W) & (vr >= 0) & (vr < H)
+    road_pt = torch.where(road_ok[:, None], torch.stack([ur / (W - 1), vr / (H - 1)], -1), -1.0)
+
+    u, v, score = actor_hazards(spec, state, cam, fwd, right)
+    order = torch.argsort(-score, dim=1, stable=True)[:, :max_points - 1]
+    sel_valid = torch.isfinite(torch.gather(score, 1, order))
+    gx = torch.where(sel_valid, torch.gather(u, 1, order) / (W - 1), -1.0)
+    gy = torch.where(sel_valid, torch.gather(v, 1, order) / (H - 1), -1.0)
+    actors = torch.stack([gx, gy], -1)
+    return torch.cat([road_pt[:, None], actors], 1).reshape(-1, max_points * 2)
+
+
+def actor_hazards(spec, state, cam, fwd, right):
+    """Every actor's pixel (u, v) and hazard score [B, N] (-inf where not
+    visible): vehicles, walkers, then statics. In-path actors score by the
+    ego's time to reach them, actors closing on the route by how well their
+    crossing time aligns with the ego's arrival, all with a proximity
+    floor."""
+    from ..env.dynamics import take_rows
+
+    ego = state.ego
+    veh, wk, st = state.vehicles, state.walkers, state.statics
+    pos = torch.cat([veh.pos, wk.pos, st.pos], 1)  # [B, N, 2]
+    alive = torch.cat([veh.alive, wk.alive, st.alive], 1)
+    vhead = torch.stack([torch.cos(veh.yaw), torch.sin(veh.yaw)], -1)
+    vel = torch.cat([veh.speed[..., None] * vhead, wk.vel, torch.zeros_like(st.pos)], 1)
+    z = torch.cat([torch.full_like(veh.yaw, 0.9), torch.full_like(wk.pos[..., 0], 1.0),
+                   torch.full_like(st.yaw, 0.8)], 1)
+    u, v, depth = _project(cam, fwd, right, pos, z)
+    visible = alive & (depth > 1.0) & (depth < 80.0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    # relevance to the ego's plan: each actor placed on the route window ahead
+    start = ego.route_idx.clamp(0, spec.route_xy.shape[1] - AHEAD_WIN)
+    widx = start[:, None] + torch.arange(AHEAD_WIN, device=start.device)[None]
+    win = take_rows(spec.route_xy, widx)  # [B, 80, 2]
+    wdir = take_rows(spec.route_dir, widx)
+    diff = pos[:, :, None, :] - win[:, None, :, :]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]  # [B, N, 80]
+    j = torch.argmin(d2, -1)  # the first of tied minima, as jnp.argmin
+    nd = take_rows(wdir, j)
+    relr = pos - take_rows(win, j)
+    s_a = (start[:, None] + j).float()
+    s_ego = ego.route_idx.float()[:, None]
+    lat = -(nd[..., 0] * relr[..., 1] - nd[..., 1] * relr[..., 0])  # +left of route
+    near_route = torch.sqrt(d2.amin(-1)) < 40.0
+    ahead_ok = near_route & (s_a > s_ego - 2.0) & (s_a < s_ego + 70.0)
+    t_ego = (s_a - s_ego) / ego.speed.clamp_min(2.0)[:, None]
+    in_path = ahead_ok & (lat.abs() < 2.2)
+    # lateral closing speed toward the centerline
+    dlat_dt = nd[..., 1] * vel[..., 0] - nd[..., 0] * vel[..., 1]
+    v_toward = -torch.sign(lat) * dlat_dt
+    t_cross = ((lat.abs() - 1.0) / v_toward.clamp_min(0.15)).clamp_min(0.0)
+    crossing = ahead_ok & (v_toward > 0.4)
+    rel = pos - ego.pos[:, None]
+    dist = torch.sqrt(rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]).clamp_min(1.0)
+    hazard = (_div(0.3, dist)
+              + torch.where(in_path, _div(2.0, t_ego.clamp_min(0.5)), 0.0)
+              + torch.where(crossing, _div(2.0, t_cross.clamp_min(0.2) + (t_ego - t_cross).abs()),
+                            0.0))
+    return u, v, torch.where(visible, hazard, float("-inf"))
+
+
+def confounded_overlay(img: torch.Tensor, action7: torch.Tensor) -> torch.Tensor:
+    """Bake action indicators into frames [B, H, W] from actions [B, 7]
+    (saliency_pipeline build_confunded_obs.py semantics: a brake dot and a
+    steering bar)."""
+    h, w = img.shape[-2], img.shape[-1]
+    vv = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    uu = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    brake = (action7[..., 2] > 0.8)[:, None, None]
+    dot = ((uu - 0.92 * w) ** 2 + (vv - 0.85 * h) ** 2) < (0.03 * w) ** 2
+    img = torch.where(dot & brake, 1.0, img)
+    steer = action7[..., 1].clamp(-1.0, 1.0)
+    bar_y = (vv - 0.92 * h).abs() < 0.015 * h
+    cxp = (0.5 * w + steer * 0.2 * w)[:, None, None]
+    bar_x = (uu > torch.clamp(cxp, max=0.5 * w)) & (uu < torch.clamp(cxp, min=0.5 * w))
+    return torch.where(bar_y & bar_x, 0.95, img)

@@ -1,2 +1,3 @@
-"""BC training: models, loss and train step, optimizer, device-resident
-epochs, checkpoints and the Trainer (port of gabril_carla_tpu.train)."""
+"""Training: BC and gaze-predictor models, losses and train steps, the
+optimizer, device-resident epochs, checkpoints and the Trainer (port of
+gabril_carla_tpu.train)."""

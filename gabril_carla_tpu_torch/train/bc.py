@@ -401,11 +401,15 @@ def make_bc_policy_fn(models: BCModels, cfg):
     None) -> float32 [B, A]. Mirrors BCAgent._predict_control's per-method
     input assembly and GMD/IGMD test mode (bc_agent.py:271-305).
 
-    ``params`` is a state dict of ``models``; obs and heat keep the JAX
-    package's NHWC layout (channels-last views feed the convs).
+    ``params`` is a state dict of ``models``, with the frozen gaze
+    predictor's state dict beside it under "gaze_predictor" at eval (the
+    policy leaves it out); obs and heat keep the JAX package's NHWC layout
+    (channels-last views feed the convs).
     """
 
     def policy(params, obs, heat=None):
+        if "gaze_predictor" in params:
+            params = {k: v for k, v in params.items() if k != "gaze_predictor"}
         heat = None if heat is None else heat.permute(0, 3, 1, 2)
         return functional_call(models, params, (obs.permute(0, 3, 1, 2), heat))
 

@@ -1,17 +1,19 @@
-"""Trainer: the BC epoch loop on one device (port of
-gabril_carla_tpu/train/loop.py, BC parts).
+"""Trainer: the BC and gaze-predictor epoch loop on one device (port of
+gabril_carla_tpu/train/loop.py).
 
 BaseTrainer's epoch loop (train/common/base_trainer.py:116-192) maps to:
 with the dataset resident on the device, one epoch of steps that gather
 their batches there (train/device_data.py); otherwise a host iterator of
 shuffled numpy batches, each copied to the device for one train step.
 
-Waiting in ROADMAP.md: ``mode="gaze"`` and ``mode="vqvae"`` (M11), Oreo's
-pretrained ``dropout.vqvae_path`` (M11), ``resume`` (M9) and sharding over
-several devices (M12); they raise NotImplementedError.
+Waiting in ROADMAP.md: ``mode="vqvae"`` and Oreo's pretrained
+``dropout.vqvae_path`` (M11), ``resume`` (M9) and sharding over several
+devices (M12); they raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -21,19 +23,27 @@ from ..utils.logging import ExperimentLogger
 from ..utils.profiling import StageTimer
 from .bc import init_bc_state, make_bc_train_step
 from .checkpoint import save_manifest, save_params
+from .gaze_predictor import init_gaze_state, make_gaze_train_step
 from .optim import build_optimizer
+
+# Collapse-gated restore threshold for the gaze predictor (see train()):
+# restore the best-epoch snapshot only when the final train loss is this
+# many times worse than the best epoch's, i.e. only on a mid-run MSE-head
+# blowup, never as silent best-checkpoint selection.
+COLLAPSE_GATE = 2.0
 
 
 class Trainer:
-    """mode 'bc' (BCTrainer parity) on ``device``."""
+    """mode 'bc' (BCTrainer parity) or 'gaze' (GazePredictorTrainer parity)
+    on ``device``."""
 
     def __init__(self, cfg, dataset: BCDataset, mode: str = "bc", device="cuda"):
-        if mode in ("gaze", "vqvae"):
-            raise NotImplementedError(f"mode {mode!r}: the gaze predictor and the VQ-VAE are "
-                                      "queued in ROADMAP.md (M11)")
-        if mode != "bc":
+        if mode == "vqvae":
+            raise NotImplementedError("mode 'vqvae': the VQ-VAE is queued in ROADMAP.md (M11)")
+        if mode not in ("bc", "gaze"):
             raise ValueError(f"unknown mode {mode}")
-        if cfg.get_path("dropout.method") == "Oreo" and cfg.get_path("dropout.vqvae_path", ""):
+        if (mode == "bc" and cfg.get_path("dropout.method") == "Oreo"
+                and cfg.get_path("dropout.vqvae_path", "")):
             raise NotImplementedError("dropout.vqvae_path: loading a pretrained VQ-VAE is queued "
                                       "in ROADMAP.md (M11)")
         if cfg.get_path("training.resume_interval", 0):
@@ -41,6 +51,7 @@ class Trainer:
                                       "ROADMAP.md (M9)")
         self.cfg = cfg
         self.dataset = dataset
+        self.mode = mode
         self.device = torch.device(device)
         bs = cfg.data["batch_size"]
         spe = dataset.steps_per_epoch(bs)
@@ -59,8 +70,12 @@ class Trainer:
 
         self.logger = ExperimentLogger(cfg)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.models, self.state = init_bc_state(cfg, gen, tx, self.device)
-        self.step_fn = make_bc_train_step(self.models, cfg)
+        if mode == "bc":
+            self.models, self.state = init_bc_state(cfg, gen, tx, self.device)
+            self.step_fn = make_bc_train_step(self.models, cfg)
+        else:
+            (self.model, self.heatmapper), self.state = init_gaze_state(cfg, gen, tx, self.device)
+            self.step_fn = make_gaze_train_step(self.model, self.heatmapper, cfg)
         if self.device_mode:
             from .device_data import DeviceData, make_epoch_fn
 
@@ -81,6 +96,14 @@ class Trainer:
         save_interval = cfg.get_path("training.save_interval", 50)
         bs = cfg.data["batch_size"]
         last = {}
+        # The gaze predictor keeps its LAST epoch, as the reference does
+        # (train/common/base_trainer.py:164-180), unless the run collapsed:
+        # a hot step can blow the MSE head into a constant predictor mid-run,
+        # and every heat-consuming method would then evaluate against
+        # degenerate heat. Only a final loss above COLLAPSE_GATE x the best
+        # epoch's restores the best epoch's snapshot.
+        keep_best = self.mode == "gaze"
+        self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
         for epoch in range(epochs):
             if self.device_mode:
                 with self.timer.stage("epoch"):
@@ -105,11 +128,26 @@ class Trainer:
             self.logger.print(
                 f"epoch {epoch + 1}/{epochs}: " + ", ".join(f"{k}={v:.5f}" for k, v in avg.items()))
             last = avg
+            if keep_best and avg.get("loss", float("inf")) < self._best_loss:
+                self._best_loss, self._best_epoch = avg["loss"], epoch + 1
+                # a copy: the live tensors would follow later updates
+                self._best_params = {k: v.detach().clone() for k, v in self.state.params.items()}
             if (epoch + 1) % save_interval == 0 or (epoch + 1) == epochs:
                 self.save(epoch + 1)
+        collapsed = (keep_best and self._best_params is not None and self._best_epoch != epochs
+                     and last.get("loss", 0.0) > COLLAPSE_GATE * self._best_loss)
+        if collapsed:
+            self.state = dataclasses.replace(self.state, params=self._best_params)
+            self.save(epochs)  # the final checkpoint holds the restored params
+            self.logger.print(
+                f"collapse gate tripped: restored epoch {self._best_epoch} "
+                f"(loss {self._best_loss:.5f}) over final epoch "
+                f"({last.get('loss', float('nan')):.5f} > {COLLAPSE_GATE:g}x best)")
+            last = {**last, "loss": self._best_loss, "kept_best_epoch": self._best_epoch}
         return last
 
     def save(self, epoch: int):
         save_params(self.logger.ckpt_dir, epoch, self.state.params)
         if self.cfg.get_path("logging.save_params", True):
-            save_manifest(self.logger.ckpt_dir, self.cfg, epoch)
+            extra = {"model_type": "gaze_predictor"} if self.mode == "gaze" else None
+            save_manifest(self.logger.ckpt_dir, self.cfg, epoch, extra=extra)

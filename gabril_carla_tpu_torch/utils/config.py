@@ -1,13 +1,16 @@
-"""Config surface: nested dicts with attribute access and the BC defaults.
+"""Config surface: nested dicts with attribute access, YAML files with
+``_base_`` inheritance, dotted CLI overrides, and the BC and gaze-predictor
+defaults (a copy of gabril_carla_tpu/utils/config.py).
 
-The part of gabril_carla_tpu/utils/config.py the slice needs (``Config``,
-``default_bc_config``), copied; YAML loading comes with cli/train_bc.py
-(ROADMAP.md M9), the gaze-predictor defaults with the gaze predictor (M11).
+``load_config`` imports ``yaml`` only when it is given a path, so dotted
+overrides work where PyYAML is not installed.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+from pathlib import Path
 from typing import Any
 
 
@@ -41,6 +44,49 @@ class Config(dict):
 
     def to_dict(self) -> dict:
         return json.loads(json.dumps(self))
+
+
+def _deep_update(base: dict, upd: dict) -> dict:
+    for k, v in upd.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            _deep_update(base[k], v)
+        else:
+            base[k] = copy.deepcopy(v)
+    return base
+
+
+def _parse_value(s: str) -> Any:
+    try:
+        return json.loads(s)
+    except (json.JSONDecodeError, ValueError):
+        low = s.lower()
+        if low in ("true", "false"):
+            return low == "true"
+        if low == "null":  # note: "none" stays a string (scheduler.type=none)
+            return None
+        return s
+
+
+def load_config(path: str | Path | None = None, overrides: list[str] | None = None,
+                base: dict | None = None) -> Config:
+    """Load YAML config with `_base_` inheritance and dotted overrides."""
+    cfg: dict = copy.deepcopy(base) if base else {}
+    if path is not None:
+        import yaml
+
+        path = Path(path)
+        raw = yaml.safe_load(path.read_text()) or {}
+        if "_base_" in raw:
+            parent = load_config(path.parent / raw.pop("_base_"))
+            cfg = _deep_update(dict(parent), cfg)
+            raw = dict(raw)
+        cfg = _deep_update(cfg, raw)
+    for ov in overrides or []:
+        key, _, val = ov.partition("=")
+        c = Config(cfg)
+        c.set_path(key.strip(), _parse_value(val.strip()))
+        cfg = dict(c)
+    return Config(cfg)
 
 
 def default_bc_config() -> Config:
@@ -116,3 +162,20 @@ def default_bc_config() -> Config:
             "tag": "",
         }
     )
+
+
+def default_gaze_config() -> Config:
+    """Defaults for the gaze-predictor trainer (train_gaze.yaml surface)."""
+    cfg = default_bc_config()
+    cfg["gaze"] = {
+        "sigma": 30.0,
+        "coeff": 0.8,
+        "max_points": 5,
+        "temporal_mode": "alpha_decay",
+        "temporal_alpha": 0.7,
+        "temporal_sigmas": None,
+        "temporal_coeffs": None,
+        "temporal_offset_start": 0,
+    }
+    cfg["optimizer"]["lr"] = 1e-3
+    return cfg

@@ -1,5 +1,5 @@
-"""Card tests of the port (marker ``gpu``): the render kernel, and BC
-training on the card.
+"""Card tests of the port (marker ``gpu``): the render kernel, BC training
+and the gaze-heat eval path on the card.
 
 They need a CUDA card and skip without one; the CPU parity tests in
 tests/test_torch_render.py and tests/test_torch_train*.py hold the CPU path
@@ -13,7 +13,10 @@ root, as above). Bars: chip_smoke.py's; for the kernel at most FLIP_PX
 pixels a frame off by more than 1e-5, as kernel and plain version visit the
 same rows and boxes; for training, every gaze x dropout method's metrics
 within LOSS_RTOL and gradients within GRAD_FRAC of their leaf's scale of the
-same code on the CPU.
+same code on the CPU; for the gaze predictor the same bars on its float32
+forward and loss and on its gradients (chip_smoke.gaze_agrees), and
+analytic gaze within 1e-4 of the CPU apart from slots whose hazard scores
+tie; each heat rollout launches the kernel ticks + 1 times.
 """
 
 import itertools
@@ -22,15 +25,18 @@ import pytest
 import torch
 
 from chip_smoke import (FLIP_PX, GRAD_FRAC, LOSS_RTOL, _crossing_scene, _crowded, _mid_route,
-                        _tight_loop, bench_batch, bench_train_cfg, card_vs_cpu, off_pixels, operands,
+                        _tight_loop, analytic_card_vs_cpu, bench_batch, bench_train_cfg, card_vs_cpu,
+                        gaze_agrees, gaze_card_vs_cpu, heat_cases, off_pixels, operands,
                         single_route)
 from gabril_carla_tpu_torch.data.tasks import seen_routes
 from gabril_carla_tpu_torch.env.env import DrivingEnv
+from gabril_carla_tpu_torch.env.criteria import compute_score
 from gabril_carla_tpu_torch.env.world import load_benchmark_specs, to_torch
+from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
 from gabril_carla_tpu_torch.ops import raster as R
 from gabril_carla_tpu_torch.ops import render_kernel as K
 from gabril_carla_tpu_torch.train.bc import (DROPOUT_METHODS, GAZE_METHODS, init_bc_state,
-                                             make_bc_train_step)
+                                             make_bc_policy_fn, make_bc_train_step)
 from gabril_carla_tpu_torch.train.optim import build_optimizer
 
 pytestmark = pytest.mark.gpu
@@ -141,3 +147,45 @@ def test_bench_config_train_steps(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values()) and float(metrics["loss_reg"]) > 0
     moved = [k for k in state.params if not torch.equal(state.params[k], state0.params[k])]
     assert len(moved) == len(state.params), set(state.params) - set(moved)
+
+
+@pytest.mark.parametrize("arch", ["autoencoder", "unet"])
+def test_gaze_predictor_matches_cpu(cuda, arch):
+    gaps = gaze_card_vs_cpu(arch)
+    assert gaze_agrees(arch, gaps), gaps
+
+
+@pytest.mark.parametrize("case", ["mask_predictor", "gmd_analytic", "confounded"])
+def test_heat_rollout_launches_and_kernel(cuda, case):
+    """A 12-tick heat rollout of three real routes at full width: the kernel
+    launches ticks + 1 times, the heat stays in [0, 1], the scores are
+    finite, and at the final state the kernel matches its plain version."""
+    cfg, models, params, kw = heat_cases(cuda)[case]
+    policy = make_bc_policy_fn(models, cfg)
+    seen = []
+
+    def probe(p, obs, heat=None):
+        if heat is not None:
+            seen.append((float(heat.amin()), float(heat.amax())))
+        return policy(p, obs, heat)
+
+    spec = to_torch(load_benchmark_specs(seen_routes()[:3]), cuda)
+    before = K.render_kernel.launches
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state, _ = make_rollout_fn(probe, cfg, steps=12, **kw)(spec, params, gen)
+    torch.cuda.synchronize()
+    assert K.render_kernel.launches == before + 13
+    assert all(0.0 <= lo and hi <= 1.0 for lo, hi in seen) and (case == "confounded") == (not seen)
+    assert bool(torch.isfinite(compute_score(spec, state)["score_composed"]).all())
+    ops = operands(spec, state)
+    _assert_frames_match(K.render_from_operands(*ops), K.render_from_operands_plain(*ops))
+
+
+@pytest.mark.parametrize("curv", [False, True])
+def test_analytic_gaze_matches_cpu(cuda, curv):
+    spec, state = _real_routes(cuda)
+    cfg, models, params, _ = heat_cases(cuda)["confounded"]
+    state, _ = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=20)(
+        spec, params, torch.Generator(device=cuda).manual_seed(1))
+    bad, tied, mx = analytic_card_vs_cpu(spec, state, curv)
+    assert bad == 0, (bad, tied, mx)

@@ -107,15 +107,16 @@ def test_rollout_checks_draws():
         fn(spec, state_dict)  # neither a generator nor draws
     with pytest.raises(ValueError):
         fn(spec, state_dict, draws=torch.zeros(2, 3, 4))
-    with pytest.raises(NotImplementedError):
-        PRO.make_rollout_fn(policy, cfg, confounded=True)
+    with pytest.raises(ValueError):  # the confounded two-pass checks them too
+        PRO.make_rollout_fn(policy, cfg, steps=3, confounded=True)(spec, state_dict)
 
 
 def test_port_runs_without_jax():
     """In a fresh interpreter where jax and flax cannot be imported, every
-    module of the port imports, a 3-tick CPU rollout runs and so does one
-    CPU train step (Reg with GMD); no module of the JAX package gets
-    loaded."""
+    module of the port imports (the eval agent and CLIs included), a 3-tick
+    CPU rollout runs, one CPU train step (Reg with GMD), one gaze-predictor
+    step and a 2-tick ViSaRL rollout on analytic gaze; no module of the JAX
+    package gets loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
@@ -147,6 +148,27 @@ def test_port_runs_without_jax():
         batch = {k: torch.from_numpy(v) for k, v in ds.sample([0, 1, 2, 3]).items()}
         new, metrics = make_bc_train_step(models, cfg)(state, batch, torch.Generator().manual_seed(1))
         assert new.step == 1 and bool(torch.isfinite(metrics["loss"])) and float(metrics["loss_reg"]) > 0
+        from gabril_carla_tpu_torch.cli import eval_routes
+        from gabril_carla_tpu_torch.eval.agent import BCAgent
+        from gabril_carla_tpu_torch.train.gaze_predictor import init_gaze_state, make_gaze_train_step
+        from gabril_carla_tpu_torch.utils.config import default_gaze_config
+        gcfg = default_gaze_config()
+        gcfg["model"].update(num_hiddens=8, embedding_dim=4, num_residual_layers=1,
+                             num_residual_hiddens=4)
+        gcfg["training"]["compute_dtype"] = "float32"
+        tx = build_optimizer(gcfg.optimizer, gcfg.scheduler, gcfg.training, 2)
+        (model, hm), gstate = init_gaze_state(gcfg, torch.Generator().manual_seed(0), tx, device="cpu")
+        ds = BCDataset(synthetic_episodes(n_demos=1, steps=2, img_hw=(180, 320)), frame_stack=2)
+        batch = {k: torch.from_numpy(v) for k, v in ds.sample([0, 1]).items()}
+        gnew, gm = make_gaze_train_step(model, hm, gcfg)(gstate, batch)
+        assert gnew.step == 1 and bool(torch.isfinite(gm["loss"]))
+        cfg["gaze"]["method"], cfg["dropout"]["method"] = "ViSaRL", "None"
+        cfg["data"].update(img_height=180, img_width=320)
+        models = build_bc_models(cfg, device="cpu")
+        params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+        fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=2, use_analytic_gaze=True)
+        st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, device="cpu")
+        assert bool(torch.isfinite(trace).all())
         bad = [m for m in sys.modules if m == "gabril_carla_tpu" or m.startswith("gabril_carla_tpu.")]
         assert not bad, bad
         print("ok")

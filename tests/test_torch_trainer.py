@@ -150,6 +150,8 @@ def test_trainer_epoch_writes_checkpoint(tmp_path, device_data):
 
 @pytest.mark.parametrize("case", ["gaze", "vqvae", "vqvae_path", "resume"])
 def test_trainer_waiting_parts_raise(tmp_path, case):
+    """The VQ-VAE, a pretrained VQ-VAE and full-state resume wait in
+    ROADMAP.md; "gaze" is resume in the gaze-predictor mode."""
     over = {"logging.log_dir": str(tmp_path)}
     if case == "vqvae_path":
         over.update({"dropout.method": "Oreo", "dropout.vqvae_path": str(tmp_path / "vq")})
@@ -157,4 +159,4 @@ def test_trainer_waiting_parts_raise(tmp_path, case):
     ds = BCDataset(synthetic_episodes(**EPISODES), BC_S)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer = Trainer(pcfg, ds, mode=case if case in ("gaze", "vqvae") else "bc", device="cpu")
-        trainer.train(resume=case == "resume")
+        trainer.train(resume=case in ("resume", "gaze"))
