@@ -61,11 +61,35 @@ Phases, each fatal on failure:
      UNet's float32 gradients and how far input noise moves its float64
      ones are read (gaze_agrees says why); analytic gaze on the 20 routes
      after COMPARE_TICKS ticks (within 1e-4, apart from slots whose hazard
-     scores tie within 1e-6 relative).
+     scores tie within 1e-6 relative);
+ 14. collection: cli/collect.py's main on route COLLECT_ROUTE with the
+     COLLECT_SEEDS as 8 worlds, COLLECT_TICKS ticks at 180x320; steps/s of
+     the rollout, a stage split (render, analytic gaze, expert, env step)
+     and a profiler window; fatal unless the render kernel launched once a
+     tick, every episode's files and stats.json exist and name their pair,
+     the median world moved over COLLECT_MOVED_M and every world scored,
+     the kernel matches its plain version at the final state, and
+     expert_action on the card matches the CPU on the collected states
+     (brake equal, throttle and steer within EXPERT_TOL);
+ 15. the VQ-VAE train step at default_bc_config's widths (batch 256, bf16,
+     512 codes, batch resident on the card): a warm-up step, then VQ_STEPS
+     timed with CUDA events; samples/s, FLOPs and their share of the bf16
+     peak, peak memory, a profiler window; then card against CPU at the CPU
+     tests' widths: metrics (LOSS_RTOL), gradients (GRAD_FRAC), code indices
+     (equal but where the two nearest distances tie within VQ_TIE_RTOL) and
+     the revive with given draws;
+ 16. the pipeline on phase 14's episodes, read through the converter's
+     coercions (the card's machine has no h5py): train_vqvae 2 epochs, Oreo
+     train_bc on its checkpoint (the codebook adopted bitwise), and the
+     resume check in a subprocess under deterministic algorithms: a 3-epoch
+     run against a 2-epoch run resumed for a third, final params and
+     optimizer state bitwise equal.
 Prints JSON lines of the kernel records, the train step's, the gaze
-predictor step's and the heat rollouts' numbers, the card line, and last
+predictor step's, the heat rollouts', the collection's, the VQ-VAE step's
+and the pipeline's numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
-CUDA device or any phase fails.
+CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
+phase 16's subprocess.
 """
 
 from __future__ import annotations
@@ -240,6 +264,19 @@ def tick_draws(b: int, ticks: int = 10) -> torch.Tensor:
                       device="cuda")
 
 
+def synced(wall: dict, name: str, fn, ticks: int):
+    """``fn`` synchronised around each call, its wall ms per tick added to
+    ``wall[name]``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall[name] += (time.perf_counter() - t0) * 1e3 / ticks
+        return out
+    return run
+
+
 def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
     """Where a tick's time goes: make_rollout_fn's own loop over ``ticks``
     ticks, the functions it calls wrapped so that each stage is synchronised
@@ -256,14 +293,7 @@ def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
     wall = dict.fromkeys(("render", "heat", "policy", "overlay", "env step"), 0.0)
 
     def timed(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            wall[name] += (time.perf_counter() - t0) * 1e3 / ticks
-            return out
-        return run
+        return synced(wall, name, fn, ticks)
 
     class Env(DrivingEnv):
         step = timed("env step", DrivingEnv.step)
@@ -931,6 +961,374 @@ def card_vs_cpu_phase(spec20, state40):
             raise SystemExit("chip_smoke: analytic gaze on the card disagrees with the CPU")
 
 
+# --- the offline data-to-policy path (phases 14-16) ---------------------------
+
+COLLECT_ROUTE, COLLECT_SEEDS, COLLECT_TICKS = 3100, tuple(range(200, 208)), 400  # phase 14
+COLLECT_MOVED_M = 20.0
+EXPERT_TOL = 1e-5  # tests/test_torch_expert.py: ACT_TOL
+SPLIT_TICKS = 40  # phase 14's stage split
+VQ_BATCH, VQ_STEPS = 256, 20  # phase 15
+VQ_TIE_RTOL = 1e-6  # phase 15: codes whose two nearest distances are this close may swap
+REVIVE_TOL = 1e-5  # phase 15: revived rows carry encoder latents
+
+
+def expert_card_vs_cpu(spec, states) -> tuple[int, float]:
+    """expert_action on the card against the CPU on ``states`` (each a
+    SceneState on the card): (worlds whose brake differs, largest throttle
+    or steer gap)."""
+    from gabril_carla_tpu_torch.env.expert import expert_action
+
+    spec_c = tree_to(spec, "cpu")
+    flips, gap = 0, 0.0
+    for st in states:
+        got = expert_action(spec, st).cpu()
+        want = expert_action(spec_c, tree_to(st, "cpu"))
+        flips += int((got[:, 2:] != want[:, 2:]).any(1).sum())
+        gap = max(gap, float((got[:, :2] - want[:, :2]).abs().max()))
+    return flips, gap
+
+
+def collect_phase(card: str, out_dir) -> tuple[dict, int, float]:
+    """Phase 14: cli/collect.py's main on COLLECT_ROUTE with the seeds as
+    worlds. Returns (record, K1 launches in the run, K1's error against its
+    plain version at the final state)."""
+    from pathlib import Path
+    from unittest import mock
+
+    from gabril_carla_tpu_torch.cli import collect as CL
+    from gabril_carla_tpu_torch.env.criteria import compute_score
+    from gabril_carla_tpu_torch.env.env import DrivingEnv
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+
+    seen, probes, ticks = {}, [], [0]
+    collect_fn, expert_fn = CL.collect, CL.expert_action
+
+    def run_collect(spec, steps, draws, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect_fn(spec, steps, draws, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.update(spec=spec, state=out[0], rollout_s=time.perf_counter() - t0)
+        return out
+
+    def probe_expert(spec, state):
+        if ticks[0] % 100 == 0:  # the collected states the card is held to the CPU on
+            probes.append(state)
+        ticks[0] += 1
+        return expert_fn(spec, state)
+
+    args = ["--route", str(COLLECT_ROUTE), "--steps", str(COLLECT_TICKS), "--out", str(out_dir),
+            "--seeds", *map(str, COLLECT_SEEDS)]
+    buf = io.StringIO()
+    with mock.patch.multiple(CL, collect=run_collect, expert_action=probe_expert):
+        torch.cuda.synchronize()
+        render_kernel.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            CL.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = render_kernel.launches
+    spec, state = seen["spec"], seen["state"]
+    b = len(COLLECT_SEEDS)
+    rate = b * COLLECT_TICKS / seen["rollout_s"]
+
+    # where a tick's time goes, and the device's busy share
+    split = dict.fromkeys(("render", "analytic gaze", "expert", "env step"), 0.0)
+
+    class Env(DrivingEnv):
+        step = synced(split, "env step", DrivingEnv.step, SPLIT_TICKS)
+
+    draws = CL.seed_draws(COLLECT_SEEDS, SPLIT_TICKS, "cuda")
+    with mock.patch.multiple(CL, DrivingEnv=Env,
+                             render_frame=synced(split, "render", CL.render_frame, SPLIT_TICKS),
+                             analytic_gaze=synced(split, "analytic gaze", CL.analytic_gaze, SPLIT_TICKS),
+                             expert_action=synced(split, "expert", CL.expert_action, SPLIT_TICKS)):
+        CL.collect(spec, SPLIT_TICKS, draws)
+    n_prof = min(10, SPLIT_TICKS)
+    busy, span = profile_window("collect", f"{n_prof} ticks", lambda: CL.collect(spec, n_prof, draws))
+
+    err = kernel_vs_plain("collect's final state", operands(spec, state))
+    flips, gap = expert_card_vs_cpu(spec, probes + [state])
+    sc = compute_score(spec, state)["score_composed"].cpu()
+    moved = (state.ego.pos - spec.spawn_pos).norm(dim=-1).cpu()
+    missing = []
+    for s in COLLECT_SEEDS:
+        ep = Path(out_dir) / f"route_{COLLECT_ROUTE}" / f"seed_{s}"
+        names = ("observations.npz", "actions.npz", "gaze.npz", "stats.json")
+        if not all((ep / n).exists() for n in names):
+            missing.append(s)
+            continue
+        rec = json.loads((ep / "stats.json").read_text())
+        if rec["route_id"] != f"RouteScenario_{COLLECT_ROUTE}" or rec["seed"] != s:
+            missing.append(s)
+    log(f"[collect] collect.main on route {COLLECT_ROUTE}, {b} seeds as worlds x {COLLECT_TICKS} ticks "
+        f"at 180x320: rollout {seen['rollout_s']:.3f} s, {rate:.1f} env steps/s; main {wall:.1f} s "
+        f"with the episode files; render launches {launches} (want {COLLECT_TICKS}); ticks per world "
+        f"{state.t.tolist()}; score_composed {[round(float(x), 2) for x in sc]}; moved median "
+        f"{float(moved.median()):.1f} m; on {card}")
+    log(f"[collect] wall ms per tick over {SPLIT_TICKS} ticks, each stage synchronised: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"[collect] expert_action card against CPU on {len(probes) + 1} collected states: {flips} worlds "
+        f"with another brake, largest throttle/steer gap {gap:.3g} (bar {EXPERT_TOL:g})")
+    if (launches != COLLECT_TICKS or missing or float(moved.median()) <= COLLECT_MOVED_M
+            or not bool((sc > 0).all()) or flips or gap > EXPERT_TOL):
+        raise SystemExit(f"chip_smoke: collection: {launches} render launches (want {COLLECT_TICKS}), "
+                         f"seeds without their files or stats.json {missing}, median world moved "
+                         f"{float(moved.median()):.1f} m (want > {COLLECT_MOVED_M}), a world scored 0, "
+                         f"or the expert on the card disagrees with the CPU")
+    rec = {"steps_per_s": rate, "rollout_s": seen["rollout_s"], "main_s": wall, "launches": launches,
+           "ticks": COLLECT_TICKS, "worlds": b, "stages_ms": split, "device_busy_share": busy / span,
+           "score_composed": sc.tolist(), "moved_median_m": float(moved.median()),
+           "expert_gap": gap, "card": card}
+    return rec, launches, err
+
+
+def vq_cfg(batch_size=VQ_BATCH, tiny=False):
+    """default_bc_config's VQ-VAE (full width, 180x320, frame stack 2, 512
+    codes, bf16), or the CPU tests' widths in float32 with ``tiny``."""
+    from gabril_carla_tpu_torch.utils.config import default_bc_config
+
+    cfg = default_bc_config()
+    cfg["data"]["batch_size"] = batch_size
+    cfg["training"]["compute_dtype"] = "bfloat16"
+    if tiny:
+        cfg["model"].update(embedding_dim=4, num_hiddens=8, num_residual_layers=1, num_residual_hiddens=4)
+        cfg["dropout"]["num_embeddings"] = 16
+        cfg["training"]["compute_dtype"] = "float32"
+    return cfg
+
+
+def vqvae_card_vs_cpu() -> dict:
+    """The VQ-VAE at the CPU tests' widths on the card and on the CPU, same
+    parameters and batch: metric and gradient gaps (as card_vs_cpu), code
+    indices that differ where the two nearest distances do not tie, and the
+    revive with given draws (dead count, kept rows bitwise, revived rows)."""
+    from torch.func import functional_call
+
+    from gabril_carla_tpu_torch.train import vqvae as V
+
+    cfg = vq_cfg(2, tiny=True)
+    cpu = V.build_vqvae_models(cfg, "cpu")
+    params = V.init_vqvae_params(cpu, torch.Generator().manual_seed(0))
+    batch = bench_batch(cfg, 2, "cpu")
+    card = V.build_vqvae_models(cfg, "cuda")
+    p_card = {k: v.cuda() for k, v in params.items()}
+    b_card = {k: v.cuda() for k, v in batch.items()}
+    _, m_cpu, g_cpu = V.vqvae_loss_and_grads(cpu, cfg, params, batch)
+    _, m_card, g_card = V.vqvae_loss_and_grads(card, cfg, p_card, b_card)
+
+    def gap(a, b):
+        d = float((a.cpu() - b).abs().max())
+        return d / float(b.abs().max()) if d else 0.0
+
+    def codes(model, p, x):
+        enc = {k[8:]: v for k, v in p.items() if k.startswith("encoder.")}
+        z = functional_call(model.encoder, enc, (x,)).float()
+        flat = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1])
+        cb = p["quantizer.codebook"] - 1.0 / cfg.dropout["num_embeddings"]
+        dist = (flat**2).sum(1, keepdim=True) + (cb**2).sum(1)[None] - 2.0 * flat @ cb.T
+        return dist.argmin(1).cpu(), dist.cpu()
+
+    x = V.stacked_frames(cfg, batch["obs_seq"])
+    i_cpu, d_cpu = codes(cpu, params, x)
+    i_card, _ = codes(card, p_card, x.cuda())
+    top2 = d_cpu.topk(2, dim=1, largest=False).values
+    tie = (top2[:, 1] - top2[:, 0]).abs() <= VQ_TIE_RTOL * top2[:, 0].abs()
+    off = i_cpu != i_card
+
+    draws = V.revive_draws(torch.Generator().manual_seed(3), x.shape[0] * 20 * 38, 16, 4)
+    sd = dict(params)
+    sd["quantizer.codebook"] = sd["quantizer.codebook"].clone()
+    sd["quantizer.codebook"][:6] = 5.0  # six codes no latent maps to
+    r_cpu, dead_cpu = V.make_revive_dead_codes(cpu, cfg)(sd, batch, draws)
+    r_card, dead_card = V.make_revive_dead_codes(card, cfg)(
+        {k: v.cuda() for k, v in sd.items()}, b_card, {k: v.cuda() for k, v in draws.items()})
+    kept = (r_cpu["quantizer.codebook"] == sd["quantizer.codebook"]).all(1)
+    cb_card = r_card["quantizer.codebook"].cpu()
+    return {"metrics": max(gap(m_card[k], m_cpu[k]) for k in m_cpu),
+            "grads": max(gap(g_card[k], g_cpu[k]) for k in g_cpu),
+            "codes_off": int((off & ~tie).sum()), "codes_tied": int(tie.sum()), "codes": int(off.numel()),
+            "dead": (int(dead_cpu), int(dead_card)),
+            "kept_equal": bool(torch.equal(cb_card[kept], r_cpu["quantizer.codebook"][kept])),
+            "revived_gap": float((cb_card[~kept] - r_cpu["quantizer.codebook"][~kept]).abs().max())}
+
+
+def vqvae_agrees(g: dict) -> bool:
+    return (g["metrics"] <= LOSS_RTOL and g["grads"] <= GRAD_FRAC and g["codes_off"] == 0
+            and g["dead"][0] == g["dead"][1] >= 6 and g["kept_equal"] and g["revived_gap"] <= REVIVE_TOL)
+
+
+def vqvae_phase(card: str) -> dict:
+    """Phase 15: the VQ-VAE train step at default_bc_config's widths."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.train.vqvae import init_vqvae_state, make_vqvae_train_step
+
+    cfg = vq_cfg()
+    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+    model, state0 = init_vqvae_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+    step = make_vqvae_train_step(model, cfg)
+    batch = bench_batch(cfg, VQ_BATCH, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state0, batch)  # warm-up
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(VQ_STEPS):
+        state, metrics = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / VQ_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: float(v) for k, v in metrics.items()}
+    groups = sorted({k.split(".")[0] for k in state.params})
+    moved = {g: any(not torch.equal(state.params[k], state0.params[k])
+                    for k in state.params if k.startswith(g + ".")) for g in groups}
+    finite = all(math.isfinite(v) for v in vals.values()) and all(
+        bool(torch.isfinite(v).all()) for v in state.params.values())
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+    flops = counter.get_total_flops()
+    bound_ms = flops / PEAK_BF16_S * 1e3
+    m = cfg.model
+    log(f"[vqvae] step (batch {VQ_BATCH}, bf16, 180x320, hiddens {m['num_hiddens']}, embedding "
+        f"{m['embedding_dim']}, {cfg.dropout['num_embeddings']} codes): first step {first_ms:.1f} ms; "
+        f"{VQ_STEPS} steps {step_ms:.3f} ms each, {VQ_BATCH / step_ms * 1e3:.1f} samples/s; FLOPs per "
+        f"step {flops / 1e12:.4f} T (FlopCounterMode), {100 * bound_ms / step_ms:.1f}% of the "
+        f"{PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16 peak; peak memory {peak / 2**30:.2f} GiB; "
+        + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()) + f"; groups moved {moved}; on {card}")
+    if not finite or not all(moved.values()):
+        raise SystemExit("chip_smoke: the VQ-VAE step gave non-finite results or left a parameter "
+                         "group unchanged")
+    busy, span = profile_window("vqvae", "3 steps", lambda: [step(state, batch) for _ in range(3)])
+    g = vqvae_card_vs_cpu()
+    log(f"[vqvae] card against CPU at the CPU tests' widths, float32: metrics {g['metrics']:.3g} "
+        f"(bar {LOSS_RTOL:g}), gradients {g['grads']:.3g} of scale (bar {GRAD_FRAC:g}); code indices "
+        f"off {g['codes_off']} of {g['codes']} outside ties ({g['codes_tied']} tied within "
+        f"{VQ_TIE_RTOL:g}); revive with given draws: dead {g['dead']}, kept rows bitwise "
+        f"{g['kept_equal']}, revived rows within {g['revived_gap']:.3g} (bar {REVIVE_TOL:g})")
+    if not vqvae_agrees(g):
+        raise SystemExit("chip_smoke: the VQ-VAE on the card disagrees with the CPU")
+    return {"samples_per_s": VQ_BATCH / step_ms * 1e3, "step_ms": step_ms, "first_step_ms": first_ms,
+            "flops_per_step": flops, "bf16_peak_share": bound_ms / step_ms, "peak_mem_gib": peak / 2**30,
+            "device_busy_share": busy / span, "metrics": vals, "card_vs_cpu": g, "card": card}
+
+
+PIPE_COMMON = ["data.batch_size=64", "training.device_data=true", "training.save_interval=1"]
+
+
+def episode_dataset(root):
+    """build_dataset for the CLIs: the collected episodes through the
+    converter's coercions (the card's machine has no h5py for an HDF5)."""
+    from gabril_carla_tpu_torch.data.converter import load_episodes
+    from gabril_carla_tpu_torch.data.dataset import BCDataset
+
+    store = load_episodes(root)
+    return lambda cfg: BCDataset(store, frame_stack=cfg.data["frame_stack"])
+
+
+def resume_check(episodes, vq_path, out) -> dict:
+    """Oreo BC on the collected episodes through train_bc: 3 epochs in one
+    run against 2 epochs resumed for a third (``--resume``); run in a
+    subprocess under torch.use_deterministic_algorithms(True). Returns which
+    final params and optimizer leaves differ."""
+    from pathlib import Path
+    from unittest import mock
+
+    from gabril_carla_tpu_torch.cli import train_bc
+    from gabril_carla_tpu_torch.train.checkpoint import latest_resume_state, load_resume_tree
+
+    torch.use_deterministic_algorithms(True)
+    args = PIPE_COMMON + [f"logging.log_dir={out}", "data.task=Resume", "dropout.method=Oreo",
+                          f"dropout.vqvae_path={vq_path}", "training.resume_interval=1"]
+    with mock.patch.object(train_bc, "build_dataset", episode_dataset(episodes)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        train_bc.main(args + ["training.epochs=3", "logging.run_name=whole"])
+        train_bc.main(args + ["training.epochs=2", "logging.run_name=cut"])
+        train_bc.main(["--resume", str(Path(out) / "Resume" / "cut"), "training.epochs=3"] + args)
+    trees = [load_resume_tree(latest_resume_state(Path(out) / "Resume" / r / "checkpoints")[0])
+             for r in ("whole", "cut")]
+
+    def unequal(a, b, name):
+        if isinstance(a, torch.Tensor):
+            return [] if torch.equal(a, b) else [name]
+        if isinstance(a, dict):
+            return [n for k in a for n in unequal(a[k], b[k], f"{name}.{k}")]
+        return [] if a == b else [name]
+
+    return {"params": unequal(trees[0]["params"], trees[1]["params"], "params"),
+            "opt_state": unequal(trees[0]["opt_state"], trees[1]["opt_state"], "opt_state"),
+            "step": (int(trees[0]["step"]), int(trees[1]["step"]))}
+
+
+def run_resume_check(episodes, vq_path, out) -> dict:
+    """resume_check in a fresh process (chip_smoke.py --resume-check) with
+    cuBLAS's deterministic workspace; its last line is the JSON result."""
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.run([sys.executable, __file__, "--resume-check", str(episodes), str(vq_path), str(out)],
+                          capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: the resume check failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def pipeline_phase(card: str, episodes, tmp) -> dict:
+    """Phase 16: train_vqvae 2 epochs and Oreo BC on it through the CLIs,
+    on phase 14's episodes; then the resume check."""
+    from pathlib import Path
+    from unittest import mock
+
+    from gabril_carla_tpu_torch.cli import train_bc, train_vqvae
+    from gabril_carla_tpu_torch.train.checkpoint import load_manifest, restore_params
+
+    common = PIPE_COMMON + [f"logging.log_dir={tmp}"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    dataset = episode_dataset(episodes)
+    t_data = time.perf_counter() - t0
+    with mock.patch.object(train_bc, "build_dataset", dataset), contextlib.redirect_stdout(buf):
+        train_vqvae.main(common + ["training.epochs=2", "data.task=Vq"])
+        t_vq = time.perf_counter() - t0 - t_data
+        vq_ckpt = next(Path(tmp).glob("Vq/*/checkpoints"))
+        train_bc.main(common + ["training.epochs=1", "data.task=Oreo", "dropout.method=Oreo",
+                                f"dropout.vqvae_path={vq_ckpt / 'ep2'}"])
+    t_bc = time.perf_counter() - t0 - t_data - t_vq
+    bc_ckpt = next(Path(tmp).glob("Oreo/*/checkpoints"))
+    vq, bc = restore_params(vq_ckpt / "ep2"), restore_params(bc_ckpt / "ep1")
+    adopted = torch.equal(vq["quantizer.codebook"], bc["quantizer.codebook"])
+    loaded = f"Loaded VQ-VAE from {vq_ckpt / 'ep2'}" in buf.getvalue()
+    vq_metrics = [json.loads(x) for x in (vq_ckpt.parent / "metrics.jsonl").read_text().splitlines()]
+    bc_metrics = [json.loads(x) for x in (bc_ckpt.parent / "metrics.jsonl").read_text().splitlines()]
+    t1 = time.perf_counter()
+    res = run_resume_check(episodes, vq_ckpt / "ep2", Path(tmp) / "resume")
+    t_res = time.perf_counter() - t1
+    n = sum(1 for _ in Path(episodes).glob("route_*/seed_*"))
+    log(f"[pipeline] {n} episodes read through the converter's coercions in {t_data:.1f} s; train_vqvae "
+        f"2 epochs in {t_vq:.1f} s (loss {vq_metrics[-1]['loss']:.5f}, perplexity "
+        f"{vq_metrics[-1]['perplexity']:.2f}, dead codes revived {[int(r['dead_codes']) for r in vq_metrics]}, "
+        f"manifest model_type {load_manifest(vq_ckpt / 'params.json').get('model_type')!r}); Oreo train_bc "
+        f"1 epoch in {t_bc:.1f} s (loss {bc_metrics[-1]['loss']:.5f}), VQ-VAE loaded: {loaded}, codebook "
+        f"bitwise the trained one: {adopted}; on {card}")
+    log(f"[pipeline] resume check (3 epochs against 2 resumed for a third, deterministic algorithms) in "
+        f"{t_res:.1f} s: unequal params {res['params']}, unequal optimizer state {res['opt_state']}, steps "
+        f"{res['step']}")
+    ok = (adopted and loaded and math.isfinite(vq_metrics[-1]["loss"]) and math.isfinite(bc_metrics[-1]["loss"])
+          and load_manifest(vq_ckpt / "params.json").get("model_type") == "vqvae"
+          and not res["params"] and not res["opt_state"] and res["step"][0] == res["step"][1])
+    if not ok:
+        raise SystemExit("chip_smoke: the pipeline: the VQ-VAE or Oreo BC did not train, Oreo did not adopt "
+                         "the trained codebook bitwise, or the resumed run differs from the whole one")
+    return {"vqvae_s": t_vq, "oreo_s": t_bc, "data_s": t_data, "resume_check_s": t_res,
+            "vq_loss": vq_metrics[-1]["loss"], "oreo_loss": bc_metrics[-1]["loss"], "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1067,10 +1465,27 @@ def main() -> int:
     t_phase = time.perf_counter()
     card_vs_cpu_phase(spec20, state40)
     log(f"[phases] 13 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 14-16. the offline data-to-policy path
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        episodes = Path(tmp) / "episodes"
+        t_phase = time.perf_counter()
+        collected, collect_launches, collect_err = collect_phase(card, episodes)
+        max_err = max(max_err, collect_err)
+        log(f"[phases] 14 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        vq = vqvae_phase(card)
+        log(f"[phases] 15 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        pipeline = pipeline_phase(card, episodes, Path(tmp) / "runs")
+        log(f"[phases] 16 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
-               "eval_routes": eval_launches}
+               "eval_routes": eval_launches, "collect": collect_launches}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
@@ -1079,6 +1494,9 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"gaze_train": gaze}))
     print(json.dumps({"heat_rollouts": heat}))
+    print(json.dumps({"collect": collected}))
+    print(json.dumps({"vqvae_train": vq}))
+    print(json.dumps({"pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -1152,4 +1570,7 @@ def _tight_loop():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-check"]:  # phase 16's subprocess
+        print(json.dumps(resume_check(*sys.argv[2:5])))
+        sys.exit(0)
     sys.exit(main())

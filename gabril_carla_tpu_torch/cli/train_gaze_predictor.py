@@ -13,7 +13,7 @@ from .train_bc import build_dataset, parse
 
 
 def main(argv=None, device="cuda"):
-    cfg = parse(argv, default_gaze_config().to_dict(), resume=False)
+    cfg, _ = parse(argv, default_gaze_config().to_dict(), resume=False)
     trainer = Trainer(cfg, build_dataset(cfg), mode="gaze", device=device)
     metrics = trainer.train()
     print("Training completed!", metrics)

@@ -4,7 +4,8 @@
 gabril_carla_tpu.train.bc.init_bc_params as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns a state dict for
 train/bc.py: BCModels; ``gaze_params_from_flax`` does the same for the gaze
-predictor (AutoEncoder or UNet). The maps are linear (transposes, flips and
+predictor (AutoEncoder or UNet), ``vqvae_params_from_flax`` for the VQ-VAE
+(train/vqvae.py: VQVAE). The maps are linear (transposes, flips and
 a row permutation), so a tree of gradients converts the same way. It
 imports nothing of JAX.
 """
@@ -88,6 +89,16 @@ def gaze_params_from_flax(params_np: dict, cfg) -> dict:
     n_res = cfg.model["num_residual_layers"]
     named = _encoder(params_np["encoder"], "encoder", n_res)
     named.update(_decoder(params_np["decoder"], "decoder", n_res))
+    return _tensors(named)
+
+
+def vqvae_params_from_flax(params_np: dict, cfg) -> dict:
+    """The flax tree of gabril_carla_tpu.train.vqvae (encoder, decoder and
+    the raw codebook) as a state dict of the port's VQVAE. Linear."""
+    n_res = cfg.model["num_residual_layers"]
+    named = _encoder(params_np["encoder"], "encoder", n_res)
+    named.update(_decoder(params_np["decoder"], "decoder", n_res))
+    named["quantizer"] = {"codebook": params_np["quantizer"]["codebook"]}
     return _tensors(named)
 
 

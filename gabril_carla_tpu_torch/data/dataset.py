@@ -1,5 +1,6 @@
 """BC dataset, host side (port of gabril_carla_tpu/data/dataset.py: the
-in-memory store, the synthetic episodes and the numpy gather path).
+episode store, HDF5 loading, the synthetic episodes and the numpy gather
+path).
 
 Schema (vlm_gaze/data_utils/bench2drive_to_hdf5.py:21-56): per episode
 images [T, H, W, 3] uint8, gaze [T, P*2] float32 in [0, 1] with -1 padding,
@@ -8,8 +9,8 @@ frame_stack=S, front padding): one sample per timestep t, the window
 [t-S+1 .. t] clamped to the episode start.
 
 Batches are numpy dicts; heatmaps, grayscale and stacking run on the device
-inside the train step. Reading HDF5 files (``load_hdf5``) and the threaded
-native gather are queued in ROADMAP.md (M9).
+inside the train step. ``load_hdf5`` imports h5py only when it is called.
+The threaded native gather waits in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ class EpisodeStore:
         self.flat_images = None  # invalidate
 
     def finalize(self) -> "EpisodeStore":
+        if self.lazy:  # images stay on disk: offsets only, no flat buffers
+            if self.lengths is None and self.images:
+                self.lengths = np.asarray([len(x) for x in self.images], np.int64)
+                self.offsets = np.concatenate([[0], np.cumsum(self.lengths)[:-1]]).astype(np.int64)
+            return self
         if self.flat_images is None and self.images:
             self.lengths = np.asarray([len(x) for x in self.images], np.int64)
             self.offsets = np.concatenate([[0], np.cumsum(self.lengths)[:-1]]).astype(np.int64)
@@ -59,6 +65,67 @@ class EpisodeStore:
     @property
     def n_demos(self) -> int:
         return len(self.images)
+
+    @property
+    def lazy(self) -> bool:
+        return bool(self.images) and not isinstance(self.images[0], np.ndarray)
+
+
+class _LazyImages:
+    """On-demand image reads from an open HDF5 dataset (robomimic cache
+    mode 'low_dim'/None parity: low-dim streams in RAM, images on disk)."""
+
+    def __init__(self, file, key: str):
+        self._file = file  # keep the h5py.File alive
+        self._ds = file[key]
+        self.shape = self._ds.shape
+        self.dtype = self._ds.dtype
+        self.nbytes = int(np.prod(self.shape)) * self._ds.dtype.itemsize
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        idx = np.asarray(idx)
+        if idx.ndim == 0:
+            return self._ds[int(idx)]
+        # h5py fancy selection needs increasing unique indices; windows are
+        # clamped (duplicated) at episode starts, so read the span and index
+        lo, hi = int(idx.min()), int(idx.max()) + 1
+        return self._ds[lo:hi][idx - lo]
+
+
+def _demo_names(f, demo_limit):
+    demos = sorted(f["data"].keys(), key=lambda s: int(s.split("_")[-1]))
+    return demos if demo_limit is None else demos[:demo_limit]
+
+
+def load_hdf5(path: str, gaze_key: str = "gaze_coords", demo_limit: int | None = None,
+              cache_images: bool = True) -> EpisodeStore:
+    """Read a robomimic-schema HDF5 into an EpisodeStore.
+
+    ``cache_images=False`` keeps the images on disk and reads windows on
+    demand (SequenceDataset hdf5_cache_mode low_dim/None,
+    robomimic/utils/dataset.py:218-219): gaze and actions load eagerly, the
+    images become lazy per-demo views over an open SWMR handle. A lazy
+    store has no flat buffers, so training cannot hold it on the device.
+    """
+    import h5py
+
+    store = EpisodeStore()
+    if cache_images:
+        with h5py.File(path, "r", swmr=True, libver="latest") as f:
+            for name in _demo_names(f, demo_limit):
+                g = f["data"][name]
+                store.add(np.asarray(g["obs"]["image"][:]), g["obs"][gaze_key][:], g["actions"][:])
+        return store
+    f = h5py.File(path, "r", swmr=True, libver="latest")  # held open by the views
+    for name in _demo_names(f, demo_limit):
+        g = f["data"][name]
+        store.images.append(_LazyImages(f, f"data/{name}/obs/image"))
+        store.gazes.append(np.ascontiguousarray(g["obs"][gaze_key][:], dtype=np.float32))
+        store.actions.append(np.ascontiguousarray(g["actions"][:], dtype=np.float32))
+    return store
 
 
 def synthetic_episodes(

@@ -4,12 +4,14 @@ gabril_carla_tpu/train/checkpoint.py; the JAX package writes Orbax trees).
 ``<ckpt_dir>/ep<N>/params.pt`` holds every module's parameters of epoch N
 as one CPU state dict; the manifest carries the hyperparameters the eval
 agent needs to rebuild the network (eval/my_agents/bc_agent.py:44-59).
-Full-state resume is queued in ROADMAP.md (M9).
+``<ckpt_dir>/_resume_ep<N>/`` holds the full training state for resume
+(save_resume_state).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 from pathlib import Path
 
 import torch
@@ -24,6 +26,60 @@ def save_params(ckpt_dir: str | Path, epoch: int, params: dict) -> Path:
 
 def restore_params(path: str | Path, device="cpu") -> dict:
     return torch.load(Path(path) / "params.pt", map_location=device, weights_only=True)
+
+
+def tree_to(tree, device):
+    """A nest of dicts holding tensors and numbers, every tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree
+
+
+def save_resume_state(ckpt_dir: str | Path, epoch_done: int, tree: dict, meta: dict) -> Path:
+    """Preemption-safe full-state checkpoint after ``epoch_done`` epochs.
+
+    ``<ckpt_dir>/_resume_ep<N>/tree.pt`` holds the tensors (params,
+    optimizer state, step generator state, keep-best params); ``meta.json``
+    beside it the host cursors (epoch, global step, numpy bit-generator
+    state, keep-best trackers). meta.json is written atomically AFTER the
+    tree, so a directory without it is the leftover of a killed save and is
+    ignored on restore. Older ``_resume_ep*`` dirs are pruned only after the
+    new one is complete: a kill at any instant leaves a valid checkpoint.
+    The reference saves weights only (train/train_bc.py:301-335)."""
+    root = Path(ckpt_dir).absolute()
+    path = root / f"_resume_ep{epoch_done}"
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    torch.save(tree_to(tree, "cpu"), path / "tree.pt")
+    tmp = path / "meta.json.tmp"
+    tmp.write_text(json.dumps({"epoch_done": epoch_done, **meta}))
+    tmp.rename(path / "meta.json")
+    for other in root.glob("_resume_ep*"):
+        if other != path:
+            shutil.rmtree(other, ignore_errors=True)
+    return path
+
+
+def latest_resume_state(ckpt_dir: str | Path):
+    """(tree.pt path, meta) of the newest COMPLETE resume checkpoint (one
+    with meta.json), or None."""
+    best = None
+    for path in Path(ckpt_dir).glob("_resume_ep*"):
+        meta_path = path / "meta.json"
+        if not meta_path.exists():
+            continue
+        meta = json.loads(meta_path.read_text())
+        if best is None or meta["epoch_done"] > best[1]["epoch_done"]:
+            best = (path / "tree.pt", meta)
+    return best
+
+
+def load_resume_tree(path: str | Path) -> dict:
+    """A resume tree as saved, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def save_manifest(ckpt_dir: str | Path, cfg, epoch: int, extra: dict | None = None) -> Path:

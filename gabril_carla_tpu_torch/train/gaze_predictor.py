@@ -64,8 +64,14 @@ def init_gaze_params(model: nn.Module, generator: torch.Generator) -> dict:
     rows are its output channels, as in flax's [kh*kw*in, out] kernel); the
     UNet's lecun-normal (truncated, fan-in); zero biases, GroupNorm scale 1.
     Returns the state dict."""
+    init_convs(model, generator, ortho=isinstance(model, AutoEncoder))
+    return model.state_dict()
+
+
+def init_convs(model: nn.Module, generator: torch.Generator, ortho: bool = True):
+    """Every conv, transposed conv and GroupNorm of ``model`` initialized in
+    place from ``generator`` (init_gaze_params says how)."""
     dev = generator.device
-    ortho = isinstance(model, AutoEncoder)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -84,7 +90,6 @@ def init_gaze_params(model: nn.Module, generator: torch.Generator) -> dict:
             elif isinstance(mod, nn.GroupNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-    return model.state_dict()
 
 
 def init_gaze_state(cfg, generator: torch.Generator, tx, device="cuda"):

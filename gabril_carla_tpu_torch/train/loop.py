@@ -1,19 +1,22 @@
-"""Trainer: the BC and gaze-predictor epoch loop on one device (port of
-gabril_carla_tpu/train/loop.py).
+"""Trainer: the BC, gaze-predictor and VQ-VAE epoch loop on one device (port
+of gabril_carla_tpu/train/loop.py).
 
 BaseTrainer's epoch loop (train/common/base_trainer.py:116-192) maps to:
 with the dataset resident on the device, one epoch of steps that gather
 their batches there (train/device_data.py); otherwise a host iterator of
 shuffled numpy batches, each copied to the device for one train step.
 
-Waiting in ROADMAP.md: ``mode="vqvae"`` and Oreo's pretrained
-``dropout.vqvae_path`` (M11), ``resume`` (M9) and sharding over several
-devices (M12); they raise NotImplementedError.
+Full-state resume: ``save_resume`` / ``restore_resume`` carry the params,
+the optimizer state, the step count, the step generator's state, numpy's
+bit-generator state and the keep-best trackers, so a killed run continues
+bit for bit (``train(resume=True)``). Sharding over several devices waits
+in ROADMAP.md (M12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -22,33 +25,28 @@ from ..data.dataset import BCDataset
 from ..utils.logging import ExperimentLogger
 from ..utils.profiling import StageTimer
 from .bc import init_bc_state, make_bc_train_step
-from .checkpoint import save_manifest, save_params
+from .checkpoint import (latest_resume_state, load_resume_tree, restore_params, save_manifest,
+                         save_params, save_resume_state, tree_to)
 from .gaze_predictor import init_gaze_state, make_gaze_train_step
 from .optim import build_optimizer
+from .vqvae import init_vqvae_state, make_revive_dead_codes, make_vqvae_train_step
 
 # Collapse-gated restore threshold for the gaze predictor (see train()):
 # restore the best-epoch snapshot only when the final train loss is this
 # many times worse than the best epoch's, i.e. only on a mid-run MSE-head
 # blowup, never as silent best-checkpoint selection.
 COLLAPSE_GATE = 2.0
+REVIVE_SEED = 77  # epoch e's revive draws: a generator seeded REVIVE_SEED + e
+REVIVE_PROBE = 512  # samples the revive encodes
 
 
 class Trainer:
-    """mode 'bc' (BCTrainer parity) or 'gaze' (GazePredictorTrainer parity)
-    on ``device``."""
+    """mode 'bc' (BCTrainer parity), 'gaze' (GazePredictorTrainer parity) or
+    'vqvae' (Oreo's quantizer pretraining) on ``device``."""
 
     def __init__(self, cfg, dataset: BCDataset, mode: str = "bc", device="cuda"):
-        if mode == "vqvae":
-            raise NotImplementedError("mode 'vqvae': the VQ-VAE is queued in ROADMAP.md (M11)")
-        if mode not in ("bc", "gaze"):
+        if mode not in ("bc", "gaze", "vqvae"):
             raise ValueError(f"unknown mode {mode}")
-        if (mode == "bc" and cfg.get_path("dropout.method") == "Oreo"
-                and cfg.get_path("dropout.vqvae_path", "")):
-            raise NotImplementedError("dropout.vqvae_path: loading a pretrained VQ-VAE is queued "
-                                      "in ROADMAP.md (M11)")
-        if cfg.get_path("training.resume_interval", 0):
-            raise NotImplementedError("training.resume_interval: full-state resume is queued in "
-                                      "ROADMAP.md (M9)")
         self.cfg = cfg
         self.dataset = dataset
         self.mode = mode
@@ -62,10 +60,15 @@ class Trainer:
         seed = cfg.get_path("training.seed", 0)
         # device-resident data: the whole dataset in device memory, each
         # epoch a loop of steps that gather on the device. "auto" takes it
-        # when the frames stay under 40 GB of the card's 80 GB.
+        # when the frames stay under 40 GB of the card's 80 GB and are in
+        # memory (a lazy, disk-backed store streams by construction).
+        lazy = dataset.store.lazy
         dd = cfg.get_path("training.device_data", "auto")
         if dd == "auto":
-            dd = sum(x.nbytes for x in dataset.store.images) < 40e9
+            dd = sum(x.nbytes for x in dataset.store.images) < 40e9 and not lazy
+        elif dd and lazy:
+            raise ValueError("training.device_data needs the images in memory: load the HDF5 "
+                             "with cache_images=True")
         self.device_mode = bool(dd)
 
         self.logger = ExperimentLogger(cfg)
@@ -73,9 +76,13 @@ class Trainer:
         if mode == "bc":
             self.models, self.state = init_bc_state(cfg, gen, tx, self.device)
             self.step_fn = make_bc_train_step(self.models, cfg)
-        else:
+        elif mode == "gaze":
             (self.model, self.heatmapper), self.state = init_gaze_state(cfg, gen, tx, self.device)
             self.step_fn = make_gaze_train_step(self.model, self.heatmapper, cfg)
+        else:
+            self.model, self.state = init_vqvae_state(cfg, gen, tx, self.device)
+            self.step_fn = make_vqvae_train_step(self.model, cfg)
+            self._revive_fn = make_revive_dead_codes(self.model, cfg)
         if self.device_mode:
             from .device_data import DeviceData, make_epoch_fn
 
@@ -86,14 +93,20 @@ class Trainer:
         self._rng = np.random.default_rng(seed)
         self._step_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._global_step = 0
+        self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
+        if mode == "bc":
+            self._maybe_load_vqvae()
 
     def train(self, resume: bool = False) -> dict:
-        """Run the epoch loop; returns the last epoch's mean metrics."""
-        if resume:
-            raise NotImplementedError("resume: full-state resume is queued in ROADMAP.md (M9)")
+        """Run the epoch loop; returns the last epoch's mean metrics.
+        ``resume=True`` continues from the newest complete resume
+        checkpoint of this run's ckpt_dir (fresh if there is none), and
+        saves one every epoch unless ``training.resume_interval`` says
+        otherwise (0 turns saving off; it is off by default without resume)."""
         cfg = self.cfg
         epochs = cfg.get_path("training.epochs", 1)
         save_interval = cfg.get_path("training.save_interval", 50)
+        resume_interval = cfg.get_path("training.resume_interval", 1 if resume else 0)
         bs = cfg.data["batch_size"]
         last = {}
         # The gaze predictor keeps its LAST epoch, as the reference does
@@ -104,7 +117,8 @@ class Trainer:
         # epoch's restores the best epoch's snapshot.
         keep_best = self.mode == "gaze"
         self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
-        for epoch in range(epochs):
+        start_epoch = self.restore_resume() if resume else 0
+        for epoch in range(start_epoch, epochs):
             if self.device_mode:
                 with self.timer.stage("epoch"):
                     perm = torch.from_numpy(self._rng.permutation(self.device_data.n_samples))
@@ -124,6 +138,8 @@ class Trainer:
                 with self.timer.stage("sync"):
                     avg = {k: float(v) / count for k, v in totals.items()}
             self._global_step += self.steps_per_epoch
+            if self.mode == "vqvae":
+                avg["dead_codes"] = self._revive_dead_codes(epoch)
             self.logger.log_scalars(self._global_step, {"epoch": epoch + 1, **avg})
             self.logger.print(
                 f"epoch {epoch + 1}/{epochs}: " + ", ".join(f"{k}={v:.5f}" for k, v in avg.items()))
@@ -134,6 +150,8 @@ class Trainer:
                 self._best_params = {k: v.detach().clone() for k, v in self.state.params.items()}
             if (epoch + 1) % save_interval == 0 or (epoch + 1) == epochs:
                 self.save(epoch + 1)
+            if resume_interval and ((epoch + 1) % resume_interval == 0 or (epoch + 1) == epochs):
+                self.save_resume(epoch + 1)
         collapsed = (keep_best and self._best_params is not None and self._best_epoch != epochs
                      and last.get("loss", 0.0) > COLLAPSE_GATE * self._best_loss)
         if collapsed:
@@ -146,8 +164,82 @@ class Trainer:
             last = {**last, "loss": self._best_loss, "kept_best_epoch": self._best_epoch}
         return last
 
+    def _revive_dead_codes(self, epoch: int) -> int:
+        """Between VQ-VAE epochs: re-seed the codebook rows no latent of the
+        first REVIVE_PROBE samples maps to (vqvae.make_revive_dead_codes),
+        with draws from a generator seeded REVIVE_SEED + epoch. The probe
+        batch is gathered on the device when the dataset lives there."""
+        if self.device_mode:
+            n = min(REVIVE_PROBE, self.device_data.n_samples)
+            batch = self.device_data.gather(torch.arange(n, device=self.device))
+        else:
+            n = min(REVIVE_PROBE, len(self.dataset))
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in self.dataset.sample(np.arange(n)).items()}
+        gen = torch.Generator(device=self.device).manual_seed(REVIVE_SEED + epoch)
+        params, dead = self._revive_fn(self.state.params, batch, gen)
+        self.state = dataclasses.replace(self.state, params=params)
+        return int(dead)
+
     def save(self, epoch: int):
         save_params(self.logger.ckpt_dir, epoch, self.state.params)
         if self.cfg.get_path("logging.save_params", True):
-            extra = {"model_type": "gaze_predictor"} if self.mode == "gaze" else None
+            extra = None
+            if self.mode != "bc":
+                extra = {"model_type": "gaze_predictor" if self.mode == "gaze" else self.mode}
             save_manifest(self.logger.ckpt_dir, self.cfg, epoch, extra=extra)
+
+    def save_resume(self, epoch_done: int):
+        """Full-state checkpoint after ``epoch_done`` epochs (checkpoint.py:
+        save_resume_state)."""
+        tree = {"params": self.state.params, "opt_state": self.state.opt_state,
+                "step": self.state.step, "step_gen": self._step_gen.get_state()}
+        if self._best_params is not None:
+            tree["best_params"] = self._best_params
+        save_resume_state(self.logger.ckpt_dir, epoch_done, tree, {
+            "global_step": self._global_step,
+            "rng_state": self._rng.bit_generator.state,
+            "best_loss": self._best_loss,
+            "best_epoch": self._best_epoch,
+            "has_best": self._best_params is not None,
+        })
+
+    def restore_resume(self) -> int:
+        """Restore the newest complete resume checkpoint of this run's
+        ckpt_dir. Returns the epoch to continue FROM (0: none found)."""
+        found = latest_resume_state(self.logger.ckpt_dir)
+        if found is None:
+            return 0
+        path, meta = found
+        tree = load_resume_tree(path)
+        self.state = dataclasses.replace(self.state, params=tree_to(tree["params"], self.device),
+                                         opt_state=tree_to(tree["opt_state"], self.device),
+                                         step=int(tree["step"]))
+        self._step_gen.set_state(tree["step_gen"])
+        self._best_params = tree_to(tree["best_params"], self.device) if meta["has_best"] else None
+        self._global_step = int(meta["global_step"])
+        self._best_loss = float(meta["best_loss"])
+        self._best_epoch = int(meta["best_epoch"])
+        self._rng.bit_generator.state = meta["rng_state"]
+        self.logger.print(f"resumed from epoch {meta['epoch_done']} (global step {self._global_step})")
+        return int(meta["epoch_done"])
+
+    def _maybe_load_vqvae(self):
+        """Oreo: adopt a pretrained VQ-VAE's encoder and frozen quantizer
+        (train_bc.py:87-99 parity) from its ``ep<N>`` checkpoint directory;
+        a missing path only warns."""
+        path = self.cfg.get_path("dropout.vqvae_path", "")
+        if self.cfg.get_path("dropout.method") != "Oreo" or not path:
+            return
+        if not Path(path).exists():
+            self.logger.print(f"Warning: VQ-VAE model not found at {path}")
+            return
+        loaded = restore_params(path, self.device)
+        adopt = {k: v for k, v in loaded.items() if k.startswith(("encoder.", "quantizer."))}
+        params = dict(self.state.params)
+        bad = [k for k, v in adopt.items() if k not in params or params[k].shape != v.shape]
+        if bad or not adopt:
+            raise ValueError(f"{path} is not a VQ-VAE checkpoint for this encoder: {bad[:3]}")
+        params.update(adopt)
+        self.state = dataclasses.replace(self.state, params=params)
+        self.logger.print(f"Loaded VQ-VAE from {path}")

@@ -1,5 +1,5 @@
-"""Card tests of the port (marker ``gpu``): the render kernel, BC training
-and the gaze-heat eval path on the card.
+"""Card tests of the port (marker ``gpu``): the render kernel, BC training,
+the gaze-heat eval path and the offline data-to-policy path on the card.
 
 They need a CUDA card and skip without one; the CPU parity tests in
 tests/test_torch_render.py and tests/test_torch_train*.py hold the CPU path
@@ -16,7 +16,11 @@ within LOSS_RTOL and gradients within GRAD_FRAC of their leaf's scale of the
 same code on the CPU; for the gaze predictor the same bars on its float32
 forward and loss and on its gradients (chip_smoke.gaze_agrees), and
 analytic gaze within 1e-4 of the CPU apart from slots whose hazard scores
-tie; each heat rollout launches the kernel ticks + 1 times.
+tie; each heat rollout launches the kernel ticks + 1 times; the expert
+within chip_smoke.EXPERT_TOL of the CPU with equal brakes, the VQ-VAE as
+chip_smoke.vqvae_agrees says, and a resumed Oreo run bitwise equal to the
+whole one (chip_smoke.run_resume_check), collection launching the kernel
+once a tick.
 """
 
 import itertools
@@ -24,10 +28,11 @@ import itertools
 import pytest
 import torch
 
-from chip_smoke import (FLIP_PX, GRAD_FRAC, LOSS_RTOL, _crossing_scene, _crowded, _mid_route,
-                        _tight_loop, analytic_card_vs_cpu, bench_batch, bench_train_cfg, card_vs_cpu,
-                        gaze_agrees, gaze_card_vs_cpu, heat_cases, off_pixels, operands,
-                        single_route)
+from chip_smoke import (EXPERT_TOL, FLIP_PX, GRAD_FRAC, LOSS_RTOL, _crossing_scene, _crowded,
+                        _mid_route, _tight_loop, analytic_card_vs_cpu, bench_batch, bench_train_cfg,
+                        card_vs_cpu, expert_card_vs_cpu, gaze_agrees, gaze_card_vs_cpu, heat_cases,
+                        off_pixels, operands, run_resume_check, single_route, vqvae_agrees,
+                        vqvae_card_vs_cpu)
 from gabril_carla_tpu_torch.data.tasks import seen_routes
 from gabril_carla_tpu_torch.env.env import DrivingEnv
 from gabril_carla_tpu_torch.env.criteria import compute_score
@@ -189,3 +194,46 @@ def test_analytic_gaze_matches_cpu(cuda, curv):
         spec, params, torch.Generator(device=cuda).manual_seed(1))
     bad, tied, mx = analytic_card_vs_cpu(spec, state, curv)
     assert bad == 0, (bad, tied, mx)
+
+
+def test_expert_matches_cpu(cuda):
+    """A 120-tick expert rollout of three real routes on the card; at every
+    40th tick the expert on the card against the CPU on the same state."""
+    from gabril_carla_tpu_torch.cli.collect import seed_draws
+    from gabril_carla_tpu_torch.env.expert import expert_action
+
+    spec, state = _real_routes(cuda)
+    draws = seed_draws([0, 1, 2], 120, cuda)
+    states = []
+    for t in range(120):
+        if t % 40 == 0:
+            states.append(state)
+        state = DrivingEnv().step(spec, state, expert_action(spec, state), draws[t])
+    flips, gap = expert_card_vs_cpu(spec, states + [state])
+    assert flips == 0 and gap <= EXPERT_TOL, (flips, gap)
+    assert float((state.ego.pos - spec.spawn_pos).norm(dim=-1).min()) > 5.0
+
+
+def test_vqvae_matches_cpu(cuda):
+    gaps = vqvae_card_vs_cpu()
+    assert vqvae_agrees(gaps), gaps
+
+
+def test_collect_and_resume_on_card(cuda, tmp_path):
+    """collect.main (3 seeds, 40 ticks: one launch a tick), a 1-epoch
+    VQ-VAE on the episodes, and the resume check on them."""
+    from unittest import mock
+
+    from chip_smoke import PIPE_COMMON, episode_dataset
+    from gabril_carla_tpu_torch.cli import collect, train_bc, train_vqvae
+
+    before = K.render_kernel.launches
+    collect.main(["--route", "3100", "--steps", "40", "--seeds", "1", "2", "3", "--out", str(tmp_path / "eps")])
+    torch.cuda.synchronize()
+    assert K.render_kernel.launches == before + 40
+    with mock.patch.object(train_bc, "build_dataset", episode_dataset(tmp_path / "eps")):
+        train_vqvae.main(PIPE_COMMON + ["training.epochs=1", "data.task=Vq",
+                                        f"logging.log_dir={tmp_path / 'runs'}"])
+    vq = next((tmp_path / "runs").glob("Vq/*/checkpoints")) / "ep1"
+    res = run_resume_check(tmp_path / "eps", vq, tmp_path / "resume")
+    assert not res["params"] and not res["opt_state"] and res["step"][0] == res["step"][1], res

@@ -9,6 +9,7 @@ Data crosses between the two frameworks as numpy arrays; JAX runs on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import flax.linen as fnn
@@ -25,6 +26,20 @@ from gabril_carla_tpu_torch.train import bc as PB
 
 POOLS = {"ego": PS.EgoState, "vehicles": PS.ActorPool, "walkers": PS.WalkerPool,
          "statics": PS.StaticPool, "scenario": PS.ScenarioState, "criteria": PS.Criteria}
+
+
+@contextlib.contextmanager
+def cpu_threads(n: int):
+    """Torch's CPU thread pool at ``n`` threads inside the block. The Tier-1
+    command runs six test workers on the host's cores; at the small sizes of
+    these tests, eight intra-op threads a worker only wait on each other
+    (a 2 s test file took 240 s that way), so the slice-5 files run on one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def port_spec(spec) -> WorldSpec:
