@@ -83,10 +83,30 @@ Phases, each fatal on failure:
      train_bc on its checkpoint (the codebook adopted bitwise), and the
      resume check in a subprocess under deterministic algorithms: a 3-epoch
      run against a 2-epoch run resumed for a third, final params and
-     optimizer state bitwise equal.
+     optimizer state bitwise equal;
+ 17. the full protocol, cli/full_benchmark.py's main at reduced depth
+     (PROTO_ARGS: 2 train seeds, collection and eval 200 ticks, 1 epoch)
+     with the methods PROTO_METHODS (regularizer, the UNet predictor's heat,
+     Oreo's VQ-VAE); then the same command again, and a confounded,
+     misperceived-gaze call from the first one's cache. Fatal unless K1
+     launched once a tick in the collection and ticks + 1 in every eval
+     rollout, K1 matches its plain version at the collection's final state,
+     every cell has a finite seen and unseen mean, the expert scored every
+     world and the median world moved over COLLECT_MOVED_M, the cache
+     reloads the collected arrays, the rerun trained nothing, and the
+     confounded store carries the overlay exactly on its masks (the dot
+     where brake > 0.8);
+ 18. the data tools: eval_routes --xosc on each vendored storyboard (the
+     one that needs the OpenDRIVE map refused naming RoadPosition) and
+     collect --xosc, K1 at one world held to its plain version on each and
+     launched ticks + 1 and ticks times, each stats.json naming the
+     storyboard's route; generate_pseudo_gaze from the screen boxes of every
+     collected tick; build_confounded over CONFOUND_EPISODES of phase 14's
+     episodes, the card's output bitwise the CPU's; eval_routes --video, an
+     mp4 read back where cv2 imports, else an ImportError naming cv2.
 Prints JSON lines of the kernel records, the train step's, the gaze
-predictor step's, the heat rollouts', the collection's, the VQ-VAE step's
-and the pipeline's numbers, the card line, and last
+predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
+the pipeline's, the protocol's and the tools' numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -1329,6 +1349,356 @@ def pipeline_phase(card: str, episodes, tmp) -> dict:
             "vq_loss": vq_metrics[-1]["loss"], "oreo_loss": bc_metrics[-1]["loss"], "card": card}
 
 
+# --- the full protocol and the data tools (phases 17-18) ----------------------
+
+PROTO_ARGS = ["--train_seeds", "200", "201", "--eval_seeds", "400", "--collect_steps", "200",
+              "--eval_steps", "200", "--epochs", "1"]  # phase 17
+PROTO_METHODS = ["None", "Reg@0.3", "Mask", "None:Oreo"]
+PROTO_OUT = ("[collect]", "[human_gaze]", "[misperceive_gaze]", "[confound]", "[resume]", "[train:",
+             "[eval:", "[done")  # the protocol's own lines of output, printed as they are
+XOSC_TICKS, XOSC_COLLECT = 120, "CyclistCrossing.xosc"  # phase 18
+CONFOUND_EPISODES = 2  # phase 18: build_confounded over the first two of phase 14's episodes
+
+
+def overlay_masks(actions):
+    """The confounding overlay's masks on the card, [T, H, W] each: where
+    ops/raster.confounded_overlay paints the brake dot and the steering bar
+    for these actions (on a blank frame: 1.0 the dot, 0.95 the bar)."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.ops.raster import confounded_overlay
+
+    marks = confounded_overlay(torch.zeros(len(actions), 180, 320, device="cuda"),
+                               torch.from_numpy(actions).cuda()).cpu().numpy()
+    return marks == np.float32(1.0), marks == np.float32(0.95)
+
+
+def protocol_phase(card: str, tmp) -> tuple[dict, dict, float]:
+    """Phase 17: cli/full_benchmark.py's main at reduced depth (PROTO_ARGS)
+    with the methods PROTO_METHODS (the regularizer, the UNet predictor's
+    heat, the VQ-VAE), into ``tmp``; then the same command again (it must
+    train nothing), and a confounded, misperceived-gaze call from the first
+    one's cache. Returns (record, K1 launches by stage, K1's error against
+    its plain version at the collection's final state)."""
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+
+    from gabril_carla_tpu_torch.cli import full_benchmark as FB
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+
+    seen = {"collect": [], "eval": [], "trainers": [], "raw_gazes": None, "confounded": None}
+    collect_fn, make_rollout_fn, collect_expert, confound_store = (
+        FB.collect, FB.make_rollout_fn, FB.collect_expert, FB.confound_store)
+
+    def run_collect(spec, steps, draws, *args, **kwargs):
+        before = render_kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect_fn(spec, steps, draws, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen["collect"].append({"spec": spec, "state": out[0], "steps": steps,
+                                "launches": render_kernel.launches - before,
+                                "s": time.perf_counter() - t0})
+        return out
+
+    def run_collect_expert(*args, **kwargs):
+        store, records = collect_expert(*args, **kwargs)
+        seen["raw_gazes"] = np.concatenate(store.gazes)  # before the gaze variant rewrites them
+        seen["store"] = store
+        return store, records
+
+    def run_confound(store):
+        confound_store(store)
+        seen["confounded"] = store
+
+    def counted_rollout(*args, **kwargs):
+        roll = make_rollout_fn(*args, **kwargs)
+
+        def run(spec, params, generator=None, draws=None):
+            before = render_kernel.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = roll(spec, params, generator=generator, draws=draws)
+            torch.cuda.synchronize()
+            seen["eval"].append({"launches": render_kernel.launches - before, "steps": kwargs["steps"],
+                                 "worlds": int(spec.route_len.shape[0]), "s": time.perf_counter() - t0})
+            return out
+        return run
+
+    class Trainer(FB.Trainer):
+        def train(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().train(*args, **kwargs)
+            torch.cuda.synchronize()
+            bc = self.mode == "bc"
+            seen["trainers"].append((self.mode, self.cfg.gaze["method"] if bc else "-",
+                                     self.cfg.dropout["method"] if bc else "-", time.perf_counter() - t0,
+                                     self.steps_per_epoch))
+            return out
+
+    def drive(args, counted):
+        buf = io.StringIO()
+        with mock.patch.multiple(FB, collect=run_collect, collect_expert=run_collect_expert,
+                                 confound_store=run_confound, make_rollout_fn=counted_rollout,
+                                 Trainer=Trainer), contextlib.redirect_stdout(buf):
+            torch.cuda.synchronize()
+            if counted:
+                render_kernel.launches = 0
+            t0 = time.perf_counter()
+            FB.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            if line.startswith(PROTO_OUT):
+                log(f"[protocol] {line}")
+        return wall
+
+    cache, out = Path(tmp) / "store.npz", Path(tmp) / "protocol"
+    first = PROTO_ARGS + ["--methods", *PROTO_METHODS, "--store_cache", str(cache), "--out", str(out)]
+    wall = drive(first, counted=True)
+    launches = render_kernel.launches
+    report = json.loads((out / "report.json").read_text())
+    n_collect, n_eval, n_trainers = len(seen["collect"]), len(seen["eval"]), len(seen["trainers"])
+    col = seen["collect"][0]
+    err = kernel_vs_plain("the protocol's collection, final state", operands(col["spec"], col["state"]))
+    moved = (col["state"].ego.pos - col["spec"].spawn_pos).norm(dim=-1).cpu()
+    store = seen["store"]
+    frames = int(sum(len(x) for x in store.images))
+    cached, records = FB.load_cache(cache)
+    cached.finalize()
+    cache_same = (np.array_equal(cached.flat_images, store.flat_images)
+                  and np.array_equal(cached.flat_actions, store.flat_actions)
+                  and np.array_equal(cached.flat_gazes, seen["raw_gazes"])
+                  and np.array_equal(cached.lengths, store.lengths))
+    expert = [r["scores"]["score_composed"] for r in records]
+
+    wall_rerun = drive(first, counted=False)
+    rerun_trained = len(seen["trainers"]) - n_trainers
+    rerun_same = json.loads((out / "report.json").read_text()) == report
+
+    conf_out = Path(tmp) / "protocol_confounded"
+    wall_conf = drive(PROTO_ARGS + ["--methods", "None", "--store_cache", str(cache), "--out",
+                                    str(conf_out), "--confounded", "--misperceive_gaze"], counted=False)
+    conf_report = json.loads((conf_out / "report.json").read_text())
+    conf = seen["confounded"]
+    dot, bar = overlay_masks(cached.flat_actions)
+    want = np.where(dot, 255, np.where(bar, 242, cached.flat_images[..., 0])).astype(np.uint8)
+    overlay_exact = np.array_equal(conf.flat_images[..., 0], want)
+    braked = int((cached.flat_actions[:, 2] > 0.8).sum())
+
+    steps = int(PROTO_ARGS[PROTO_ARGS.index("--eval_steps") + 1])
+    eval_launches = [e["launches"] for e in seen["eval"]]
+    cells = {m: (c["seen"], c["unseen"]) for m, c in report["methods"].items()}
+    cells.update({f"{m} (confounded)": (c["seen"], c["unseen"]) for m, c in conf_report["methods"].items()})
+    log(f"[protocol] first call in {wall:.1f} s: collection {col['steps']} ticks x "
+        f"{int(col['spec'].route_len.shape[0])} worlds in {col['s']:.1f} s, {frames} frames, "
+        f"{frames / col['s']:.1f} frames/s; render launches {col['launches']} (want {col['steps']}); "
+        f"median world moved {float(moved.median()):.1f} m; expert mean {report['expert_seen_mean']:.2f}, "
+        f"worlds scoring 0: {sum(x <= 0 for x in expert)} of {len(expert)}; on {card}")
+    for mode, gaze, drop, s, spe in seen["trainers"][:n_trainers]:
+        log(f"[protocol] trainer {mode} (gaze {gaze}, dropout {drop}): {s:.1f} s, {spe} steps an epoch")
+    for e in seen["eval"][:n_eval]:
+        log(f"[protocol] eval rollout {e['worlds']} worlds x {e['steps']} ticks in {e['s']:.1f} s, "
+            f"render launches {e['launches']} (want {e['steps'] + 1})")
+    log("[protocol] scores (seen, unseen): " + ", ".join(f"{m} ({a:.2f}, {b:.2f})" for m, (a, b) in cells.items()))
+    log(f"[protocol] render launches in the first call {launches} (want {steps + 1} x {n_eval} + "
+        f"{col['steps']}); cache reloads the same arrays: {cache_same}; rerun in {wall_rerun:.1f} s trained "
+        f"{rerun_trained}, report unchanged: {rerun_same}; confounded call in {wall_conf:.1f} s: the "
+        f"overlay exactly on its masks: {overlay_exact} ({braked} braking frames of "
+        f"{len(cached.flat_actions)})")
+    finite = all(math.isfinite(a) and math.isfinite(b) for a, b in cells.values())
+    ok = (n_collect == 1 and col["launches"] == col["steps"] and n_eval == 2 * len(PROTO_METHODS)
+          and len(eval_launches) == n_eval + 2 and all(x == steps + 1 for x in eval_launches) and launches == col["steps"] + n_eval * (steps + 1)
+          and set(report["methods"]) == set(PROTO_METHODS) and finite and len(conf_report["methods"]) == 1
+          and all(x > 0 for x in expert) and len(expert) == 20 and float(moved.median()) > COLLECT_MOVED_M
+          and cache_same and not rerun_trained and rerun_same and overlay_exact and braked > 0
+          and conf_report["confounded"] is True)
+    if not ok:
+        raise SystemExit("chip_smoke: the protocol: a K1 launch count is off, a cell lacks a finite score, "
+                         "an expert world scored 0 or the median one did not move, the cache did not "
+                         "reload the same arrays, the rerun trained, or the confounded store is off its masks")
+    rec = {"wall_s": wall, "collect_s": col["s"], "frames": frames, "frames_per_s": frames / col["s"],
+           "trainers": [{"mode": m, "gaze": g, "dropout": d, "s": s, "steps_per_epoch": spe}
+                        for m, g, d, s, spe in seen["trainers"]],
+           "eval_s": [e["s"] for e in seen["eval"]], "expert_seen_mean": report["expert_seen_mean"],
+           "scores": cells, "rerun_s": wall_rerun, "confounded_s": wall_conf, "card": card}
+    return rec, {"protocol collect": col["launches"], "protocol eval": sum(eval_launches[:n_eval])}, err
+
+
+def tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
+    """Phase 18: eval_routes --xosc on each vendored storyboard (the one
+    that needs the OpenDRIVE map must be refused naming RoadPosition) with
+    phase 17's "None" checkpoint, collect --xosc on XOSC_COLLECT recording
+    every tick's screen boxes, generate_pseudo_gaze from those boxes,
+    build_confounded on the card and on the CPU over CONFOUND_EPISODES of
+    phase 14's episodes (bitwise equal), and eval_routes --video (an mp4
+    read back where cv2 imports, else an ImportError naming cv2). K1 runs
+    at one world on each xosc path and is held to its plain version at its
+    final state. Returns (record, K1 launches by path, worst K1 error)."""
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+
+    from gabril_carla_tpu_torch.cli import build_confounded, collect, eval_routes
+    from gabril_carla_tpu_torch.data.vendored import XOSC_EXAMPLES, xosc_example
+    from gabril_carla_tpu_torch.env.constants import N_STATICS, N_VEHICLES, N_WALKERS
+    from gabril_carla_tpu_torch.env.xosc import load_xosc
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.saliency.pseudo_gaze import (SceneGraphDetector, generate_pseudo_gaze,
+                                                             scene_boxes)
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    manifests = {p.parent: json.loads(p.read_text())
+                 for p in (Path(tmp) / "protocol" / "runs").glob("*/*/checkpoints/params.json")}
+    ckpt = next(d for d, m in manifests.items()  # the "None" cell's BC policy
+                if "model_type" not in m and m["gaze_method"] == "None" and m["dp_method"] == "None")
+    buf, errs, rec, by_path = io.StringIO(), [], {"card": card}, {}
+    make_rollout_fn = eval_routes.make_rollout_fn
+    final = {}
+
+    def keep_final(*args, **kwargs):
+        roll = make_rollout_fn(*args, **kwargs)
+
+        def run(spec, params, generator=None, draws=None):
+            st, trace = roll(spec, params, generator=generator, draws=draws)
+            final.update(spec=spec, state=st)
+            return st, trace
+        return run
+
+    # eval_routes --xosc (and --video on the first storyboard)
+    video = None
+    for i, name in enumerate(XOSC_EXAMPLES):
+        path, out = xosc_example(name), Path(tmp) / "xosc_eval" / Path(name).stem
+        args = ["--checkpoint", str(ckpt), "--xosc", str(path), "--steps", str(XOSC_TICKS),
+                "--out", str(out)] + (["--video"] if i == 0 else [])
+        try:
+            rid = load_xosc(path)["id"]
+        except ValueError as e:  # a storyboard that needs the OpenDRIVE map
+            try:
+                with contextlib.redirect_stdout(buf):
+                    eval_routes.main(args)
+            except ValueError as got:
+                refused = str(got)
+            else:
+                refused = ""
+            if "RoadPosition" not in refused:
+                raise SystemExit(f"chip_smoke: eval_routes --xosc {name} was not refused: {e}")
+            log(f"[tools] eval_routes --xosc {name}: refused ({refused})")
+            continue
+        if i == 0 and cv2 is None:
+            try:
+                with contextlib.redirect_stdout(buf):
+                    eval_routes.main(args)
+                raise SystemExit("chip_smoke: --video ran without cv2")
+            except ImportError as got:
+                if "cv2" not in str(got):
+                    raise SystemExit(f"chip_smoke: --video failed without naming cv2: {got}") from got
+                video = f"refused without cv2: {got}"
+            args = args[:-1]
+        with mock.patch.object(eval_routes, "make_rollout_fn", keep_final), contextlib.redirect_stdout(buf):
+            render_kernel.launches = 0
+            t0 = time.perf_counter()
+            eval_routes.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = render_kernel.launches
+        errs.append(kernel_vs_plain(f"eval_routes --xosc {name}, final state",
+                                    operands(final["spec"], final["state"])))
+        stats = json.loads((out / f"route_{rid}" / "seed_400" / "stats.json").read_text())
+        ok = launches == XOSC_TICKS + 1 and stats["route_id"] == f"RouteScenario_{rid}"
+        if i == 0 and cv2 is not None:
+            cap = cv2.VideoCapture(str(out / f"route_{rid}" / "seed_400" / "rollout.mp4"))
+            got = (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)), int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                   int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+            cap.release()
+            want = (max(int(final["state"].t[0]), 1), 320, 180)
+            video = f"rollout.mp4 read back: {got[0]} frames of {got[1]}x{got[2]} (want {want})"
+            ok = ok and got == want
+        log(f"[tools] eval_routes --xosc {name}: route id {rid}, {wall:.1f} s, render launches {launches} "
+            f"(want {XOSC_TICKS + 1}), score_composed {stats['scores']['score_composed']}, stats.json "
+            f"names {stats['route_id']}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: eval_routes --xosc {name}: K1 launched {launches} times, the "
+                             f"stats.json names {stats['route_id']}, or the video is off ({video})")
+        by_path[f"eval_routes --xosc {Path(name).stem}"] = launches
+    log(f"[tools] eval_routes --video: {video}")
+
+    # collect --xosc, recording each tick's screen boxes
+    boxes, seen = [], {}
+    collect_fn, expert_fn = collect.collect, collect.expert_action
+
+    def run_collect(spec, steps, draws, *args, **kwargs):
+        out = collect_fn(spec, steps, draws, *args, **kwargs)
+        seen.update(spec=spec, state=out[0])
+        return out
+
+    def record_boxes(spec, state):
+        boxes.append(scene_boxes(state))
+        return expert_fn(spec, state)
+
+    out = Path(tmp) / "xosc_collect"
+    stem = Path(XOSC_COLLECT).stem
+    with mock.patch.multiple(collect, collect=run_collect, expert_action=record_boxes), \
+            contextlib.redirect_stdout(buf):
+        render_kernel.launches = 0
+        collect.main(["--xosc", str(xosc_example(XOSC_COLLECT)), "--steps", str(XOSC_TICKS),
+                      "--seeds", "200", "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = render_kernel.launches
+    errs.append(kernel_vs_plain(f"collect --xosc {stem}, final state", operands(seen["spec"], seen["state"])))
+    ep = out / f"route_{stem}" / "seed_200"
+    stats = json.loads((ep / "stats.json").read_text())
+    n = int(seen["state"].t[0])
+    box_gap = float((scene_boxes(tree_to(seen["state"], "cpu"))
+                     - scene_boxes(seen["state"]).cpu()).abs().max())
+    by_path[f"collect --xosc {stem}"] = launches
+
+    # pseudo-gaze from the collected boxes
+    recorded = torch.stack(boxes[:n])[:, 0].cpu().numpy()  # [n, A, 8]
+    dynamic = np.concatenate([np.ones(N_VEHICLES, bool), np.zeros(N_STATICS, bool), np.ones(N_WALKERS, bool)])
+    pg = np.load(generate_pseudo_gaze(ep, SceneGraphDetector(recorded, dynamic, dynamic_only=True), n,
+                                      (180, 320)))["gaze"]
+    detected = int((pg[:, 0] >= 0).sum())
+    log(f"[tools] collect --xosc {stem}: {n} ticks, render launches {launches} (want {XOSC_TICKS}), "
+        f"stats.json names {stats['route_id']}, score_composed {stats['scores']['score_composed']}; "
+        f"screen boxes recorded {len(boxes)}, card against CPU at the final state {box_gap:.3g}; "
+        f"gaze_pseudo.npz {pg.shape}, {detected} frames with a dynamic actor detected")
+    ok = (launches == XOSC_TICKS and stats["route_id"] == f"RouteScenario_{stem}" and pg.shape == (n, 10)
+          and len(boxes) == XOSC_TICKS and box_gap <= 1e-3 and detected > 0)
+    if not ok:
+        raise SystemExit("chip_smoke: collect --xosc or the pseudo-gaze from its boxes is off")
+
+    # build_confounded on the card and on the CPU
+    src = Path(tmp) / "confound_src"
+    for ep in sorted(Path(episodes).glob("route_*/seed_*"))[:CONFOUND_EPISODES]:
+        (src / ep.parent.name).mkdir(parents=True, exist_ok=True)
+        (src / ep.parent.name / ep.name).symlink_to(ep)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        build_confounded.main(["--dataset_root", str(src), "--out_root", str(Path(tmp) / "conf_card")])
+        t_card = time.perf_counter() - t0
+        build_confounded.main(["--dataset_root", str(src), "--out_root", str(Path(tmp) / "conf_cpu")],
+                              device="cpu")
+    files = sorted(p.relative_to(Path(tmp) / "conf_card") for p in (Path(tmp) / "conf_card").rglob("*.npz"))
+    unequal = [str(f) for f in files
+               if not all(np.array_equal(a[k], b[k]) for a, b in [(np.load(Path(tmp) / "conf_card" / f),
+                                                                    np.load(Path(tmp) / "conf_cpu" / f))]
+                          for k in a.files)]
+    cpu_files = sorted(p.relative_to(Path(tmp) / "conf_cpu") for p in (Path(tmp) / "conf_cpu").rglob("*.npz"))
+    log(f"[tools] build_confounded over {CONFOUND_EPISODES} of phase 14's episodes: {len(files)} files on "
+        f"the card in {t_card:.1f} s; card against CPU: unequal {unequal}")
+    if files != cpu_files or len(files) != 3 * CONFOUND_EPISODES or unequal:
+        raise SystemExit("chip_smoke: build_confounded on the card differs from the CPU's")
+    rec.update(xosc_ticks=XOSC_TICKS, video=video, confound_card_s=t_card, pseudo_gaze_frames=detected)
+    return rec, by_path, max(errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1338,7 +1708,7 @@ def main() -> int:
 
     from gabril_carla_tpu_torch.data.tasks import seen_routes, unseen_routes
     from gabril_carla_tpu_torch.env.criteria import compute_score
-    from gabril_carla_tpu_torch.env.world import load_benchmark_specs, to_torch
+    from gabril_carla_tpu_torch.env.world import load_benchmark_specs, spec_rows, to_torch
     from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
     from gabril_carla_tpu_torch.ops.render_kernel import build, render_kernel
     from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
@@ -1393,9 +1763,7 @@ def main() -> int:
     max_err = max(errs)
 
     # 4. main path at full width
-    reps = -(-N_WORLDS // len(ids))
-    tiled = type(base)(**{k: np.concatenate([v] * reps)[:N_WORLDS] for k, v in vars(base).items()})
-    spec = to_torch(tiled, dev)
+    spec = to_torch(spec_rows(base, np.arange(N_WORLDS) % len(ids)), dev)
     m = cfg.model
     log(f"[main] policy: embedding {m['embedding_dim']}, hiddens {m['num_hiddens']}, "
         f"{m['num_residual_layers']} residual layers of {m['num_residual_hiddens']}, "
@@ -1482,10 +1850,21 @@ def main() -> int:
         t_phase = time.perf_counter()
         pipeline = pipeline_phase(card, episodes, Path(tmp) / "runs")
         log(f"[phases] 16 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 17-18. the full protocol and the data tools
+        t_phase = time.perf_counter()
+        protocol, protocol_launches, protocol_err = protocol_phase(card, tmp)
+        max_err = max(max_err, protocol_err)
+        log(f"[phases] 17 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        tools, tools_launches, tools_err = tools_phase(card, episodes, tmp)
+        max_err = max(max_err, tools_err)
+        log(f"[phases] 18 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
-               "eval_routes": eval_launches, "collect": collect_launches}
+               "eval_routes": eval_launches, "collect": collect_launches, **protocol_launches,
+               **tools_launches}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
@@ -1497,6 +1876,8 @@ def main() -> int:
     print(json.dumps({"collect": collected}))
     print(json.dumps({"vqvae_train": vq}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"protocol": protocol}))
+    print(json.dumps({"tools": tools}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

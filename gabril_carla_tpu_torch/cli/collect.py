@@ -2,6 +2,7 @@
 of gabril_carla_tpu/cli/collect.py).
 
     python -m gabril_carla_tpu_torch.cli.collect --route 3100 --seeds 200 201 --out DIR
+    python -m gabril_carla_tpu_torch.cli.collect --xosc STORYBOARD.xosc --out DIR
 
 Replaces the reference's HumanAgent collection (eval/my_agents/
 human_agent.py: wheel/keyboard and a Gazepoint eye tracker) with expert
@@ -13,8 +14,9 @@ beside others. Per seed, <out>/route_<id>/seed_<seed>/ gets
 observations.npz (uint8 [n, 180, 320, 3]), actions.npz, gaze.npz (n its
 world's own ticks up to done) and stats.json. ``--replay`` re-executes a
 recorded actions.npz (human_agent.py:146-148), ``--video`` adds
-episode.gif (PIL, imported only then). ``--xosc`` waits for env/xosc.py
-(ROADMAP.md item 6) and raises NotImplementedError.
+episode.gif (PIL, imported only then). ``--xosc`` collects on an
+OpenSCENARIO storyboard (env/xosc.py) in place of a benchmark route; its
+episodes go under route_<storyboard name>.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from ..data.vendored import routes_path
 from ..env.criteria import compute_score
 from ..env.env import DRAWS_PER_STEP, DrivingEnv
 from ..env.expert import expert_action
-from ..env.world import load_benchmark_specs, to_torch
+from ..env.world import build_world_spec, load_benchmark_specs, spec_rows, stack_specs, to_torch
+from ..env.xosc import load_xosc
 from ..eval.stats import route_record, write_stats_json
 from ..ops.raster import analytic_gaze, render_frame
 
@@ -78,7 +81,7 @@ def main(argv=None, device="cuda"):
     p = argparse.ArgumentParser()
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--route", type=int, help="bench2drive220 route id")
-    src.add_argument("--xosc", help="OpenSCENARIO .xosc file (queued in ROADMAP.md, item 6)")
+    src.add_argument("--xosc", help="OpenSCENARIO .xosc file (env/xosc.py subset)")
     p.add_argument("--seeds", type=int, nargs="+", default=[200])
     p.add_argument("--routes_xml", default=str(routes_path()),
                    help="route table in the compiled routes220.json.gz format")
@@ -91,12 +94,16 @@ def main(argv=None, device="cuda"):
                    help="curvature-anticipating (tangent-point) road fixations "
                         "instead of the fixed 15 m preview (ops/raster.py)")
     args = p.parse_args(argv)
-    if args.xosc:
-        raise NotImplementedError("--xosc: env/xosc.py is queued in ROADMAP.md (item 6)")
 
-    one = load_benchmark_specs([args.route], routes_file=args.routes_xml)
+    if args.xosc:
+        route = load_xosc(args.xosc)
+        one = stack_specs([build_world_spec(route)])
+        route_label = route["name"]
+    else:
+        one = load_benchmark_specs([args.route], routes_file=args.routes_xml)
+        route_label = args.route
     n_worlds = len(args.seeds)
-    spec = to_torch(type(one)(**{k: np.repeat(v, n_worlds, 0) for k, v in vars(one).items()}), device)
+    spec = to_torch(spec_rows(one, np.zeros(n_worlds, np.int64)), device)
     replay = None
     if args.replay:
         replay = torch.from_numpy(np.load(Path(args.replay) / "actions.npz")["actions"]).to(device)
@@ -109,7 +116,7 @@ def main(argv=None, device="cuda"):
     route_len = float(one.route_len[0])
     for i, seed in enumerate(args.seeds):
         n = int(n_ticks[i])
-        ep = Path(args.out) / f"route_{args.route}" / f"seed_{seed}"
+        ep = Path(args.out) / f"route_{route_label}" / f"seed_{seed}"
         ep.mkdir(parents=True, exist_ok=True)
         obs = frames[:n, i, :, :, None].repeat(3, -1)
         np.savez_compressed(ep / "observations.npz", observations=obs)
@@ -117,10 +124,10 @@ def main(argv=None, device="cuda"):
         np.savez_compressed(ep / "gaze.npz", gaze=gazes[:n, i])
         if args.video:
             write_gif(ep / "episode.gif", obs[..., 0])
-        rec = route_record(args.route, seed, {k: v[i] for k, v in score.items()},
+        rec = route_record(route_label, seed, {k: v[i] for k, v in score.items()},
                            duration_game=n * 0.05, route_length=route_len)
         write_stats_json(args.out, rec)
-        print(f"route {args.route} seed {seed}: {n} ticks, "
+        print(f"route {route_label} seed {seed}: {n} ticks, "
               f"score {rec['scores']['score_composed']:.2f} [{rec['status']}] -> {ep}")
     return 0
 

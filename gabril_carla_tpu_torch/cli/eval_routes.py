@@ -10,13 +10,15 @@ Resume parity with RouteIndexer.validate_and_resume (route_indexer.py:
 40-93): pairs whose stats.json exists are skipped unless --no-resume. Each
 pair's env draws come from its own generator seeded with
 seed * 100003 + route, so a resumed subset writes the same stats.json as a
-full run. ``--xosc`` (ROADMAP.md M13) and ``--video`` (M14) raise
-NotImplementedError.
+full run. ``--xosc`` evaluates one OpenSCENARIO storyboard (env/xosc.py) as
+a world of its own; ``--video`` writes each pair's rendered frames as
+rollout.mp4 beside its stats.json (cv2, imported only then).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import time
 from pathlib import Path
@@ -28,7 +30,8 @@ from ..data.tasks import TASK_TO_ROUTE
 from ..data.vendored import routes_path
 from ..env.criteria import compute_score
 from ..env.env import DRAWS_PER_STEP
-from ..env.world import load_benchmark_specs, to_torch
+from ..env.world import build_world_spec, load_benchmark_specs, spec_rows, stack_specs, to_torch
+from ..env.xosc import load_xosc
 from ..eval.agent import BCAgent
 from ..eval.rollout import make_rollout_fn, needs_heat
 from ..eval.stats import aggregate_scores, route_record, write_stats_json
@@ -53,7 +56,8 @@ def main(argv=None, device="cuda"):
     p.add_argument("--split", default="test", choices=["train", "test", "test_unseen"])
     p.add_argument("--route_id", type=int, default=None, help="single route override")
     p.add_argument("--xosc", default=None,
-                   help="OpenSCENARIO storyboard (queued in ROADMAP.md, M13)")
+                   help="evaluate on an OpenSCENARIO .xosc storyboard (env/xosc.py "
+                        "subset) instead of benchmark routes")
     p.add_argument("--junction_traffic", action=argparse.BooleanOptionalAction, default=True,
                    help="ambient junction crossing traffic in the eval worlds; match it to "
                         "the checkpoint's training distribution")
@@ -62,15 +66,17 @@ def main(argv=None, device="cuda"):
     p.add_argument("--out", default="eval_out")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--video", action="store_true",
-                   help="an mp4 of each rollout (queued in ROADMAP.md, M14)")
+                   help="write an mp4 of each rollout next to its stats.json "
+                        "(autonomous_agent.py:118-132 parity; needs cv2)")
     args = p.parse_args(argv)
-    if args.xosc is not None:
-        raise NotImplementedError("--xosc: env/xosc.py is queued in ROADMAP.md (M13)")
     if args.video:
-        raise NotImplementedError("--video: eval/video.py is queued in ROADMAP.md (M14; the "
-                                  "card's machine has no cv2 or ffmpeg)")
+        importlib.import_module("cv2")  # fail before the rollout, naming cv2
 
-    if args.route_id is not None:
+    xosc_route = None
+    if args.xosc is not None:
+        xosc_route = load_xosc(args.xosc)
+        pairs = [(xosc_route["id"], s) for s in (args.seeds or [400])]
+    elif args.route_id is not None:
         pairs = [(args.route_id, s) for s in (args.seeds or [400])]
     else:
         pairs = TASK_TO_ROUTE[args.task][args.split]
@@ -86,9 +92,13 @@ def main(argv=None, device="cuda"):
         return 0
 
     agent = BCAgent(args.checkpoint, epoch=args.epoch, device=device)
-    route_ids = sorted({r for r, _ in pairs})
-    specs = load_benchmark_specs(route_ids, junction_traffic=args.junction_traffic,
-                                 routes_file=args.routes_xml)
+    if xosc_route is not None:
+        route_ids = [xosc_route["id"]]
+        specs = stack_specs([build_world_spec(xosc_route)])
+    else:
+        route_ids = sorted({r for r, _ in pairs})
+        specs = load_benchmark_specs(route_ids, junction_traffic=args.junction_traffic,
+                                     routes_file=args.routes_xml)
     idx_of = {r: i for i, r in enumerate(route_ids)}
 
     use_analytic = needs_heat(agent.cfg) and agent.gaze_predictor_apply is None
@@ -97,12 +107,12 @@ def main(argv=None, device="cuda"):
               "the manifest — falling back to analytic scene-graph gaze")
     roll = make_rollout_fn(agent.policy_fn(), agent.cfg, steps=args.steps,
                            gaze_predictor_apply=agent.gaze_predictor_apply,
-                           use_analytic_gaze=use_analytic)
+                           use_analytic_gaze=use_analytic, return_frames=args.video)
 
     spec_idx = np.asarray([idx_of[r] for r, _ in pairs])
-    batch_spec = to_torch(type(specs)(**{k: v[spec_idx] for k, v in vars(specs).items()}), device)
+    batch_spec = to_torch(spec_rows(specs, spec_idx), device)
     t0 = time.time()
-    states, _ = roll(batch_spec, agent.params, draws=pair_draws(pairs, args.steps, device))
+    states, trace = roll(batch_spec, agent.params, draws=pair_draws(pairs, args.steps, device))
     t_done = states.t.cpu()
     wall = time.time() - t0
     score = {k: v.cpu() for k, v in compute_score(batch_spec, states).items()}
@@ -118,6 +128,11 @@ def main(argv=None, device="cuda"):
         )
         write_stats_json(out, rec)
         records.append(rec)
+        if args.video:
+            from ..eval.video import write_mp4
+
+            frames = trace[: max(int(t_done[i]), 1), i].cpu().numpy()
+            write_mp4(frames, out / f"route_{r}" / f"seed_{s}" / "rollout.mp4")
         print(f"route {r} seed {s}: score {rec['scores']['score_composed']:.2f} [{rec['status']}]")
 
     agg = aggregate_scores(records)

@@ -1,13 +1,15 @@
 """Vendored benchmark data, read by path.
 
-The route table and the parked-vehicle tables live as data files in the
-JAX package's tree (``gabril_carla_tpu/data/benchmark/``); the port reads
-them from there and imports nothing of that package.
+The route table, the parked-vehicle tables and the xosc examples live as
+data files in the JAX package's tree (``gabril_carla_tpu/data/benchmark/``);
+the port reads them from there and imports nothing of that package.
 
 * ``routes220.json.gz`` — the 220 Bench2Drive routes (town, waypoint
   keypoints, scenario instances with trigger points and parameters, weather
   keyframes) in the raw-route schema ``env/world.py: build_world_spec`` reads.
 * ``parked_vehicles.npz`` — per-town ``[K, 3] (x, y, yaw_rad)`` parked slots.
+* ``xosc/*.xosc`` — three OpenSCENARIO examples (ScenarioRunner's
+  ``srunner/examples/``) for env/xosc.py.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import numpy as np
 
 BENCHMARK_DIR = Path(__file__).resolve().parents[2] / "gabril_carla_tpu" / "data" / "benchmark"
 
+XOSC_EXAMPLES = ("CyclistCrossing.xosc", "PedestrianCrossingFront.xosc",
+                 "FollowLeadingVehicle.xosc")
+
 
 def routes_path() -> Path:
     return BENCHMARK_DIR / "routes220.json.gz"
@@ -27,6 +32,10 @@ def routes_path() -> Path:
 
 def parked_tables_path() -> Path:
     return BENCHMARK_DIR / "parked_vehicles.npz"
+
+
+def xosc_example(name: str) -> Path:
+    return BENCHMARK_DIR / "xosc" / name
 
 
 def load_routes_json(path: str | Path, route_ids=None) -> dict[int, dict]:

@@ -999,6 +999,12 @@ def stack_specs(specs: list[WorldSpec]) -> WorldSpec:
                         for f in dataclasses.fields(WorldSpec)})
 
 
+def spec_rows(spec: WorldSpec, rows) -> WorldSpec:
+    """The worlds ``rows`` (an index array, repeats allowed) of a stacked
+    numpy WorldSpec."""
+    return WorldSpec(**{f.name: getattr(spec, f.name)[rows] for f in dataclasses.fields(WorldSpec)})
+
+
 def to_torch(spec: WorldSpec, device="cuda") -> WorldSpec:
     """A stacked numpy WorldSpec as tensors on ``device`` (dtypes kept:
     float32, int32, bool)."""

@@ -44,7 +44,12 @@ class Trainer:
     """mode 'bc' (BCTrainer parity), 'gaze' (GazePredictorTrainer parity) or
     'vqvae' (Oreo's quantizer pretraining) on ``device``."""
 
-    def __init__(self, cfg, dataset: BCDataset, mode: str = "bc", device="cuda"):
+    def __init__(self, cfg, dataset: BCDataset, mode: str = "bc", device="cuda",
+                 device_data=None):
+        """``device_data``: an existing DeviceData of this dataset on
+        ``device``, used as it is in device mode, so that successive
+        Trainers (the protocol's gaze predictor, VQ-VAE and every method)
+        share one copy of the frames on the card."""
         if mode not in ("bc", "gaze", "vqvae"):
             raise ValueError(f"unknown mode {mode}")
         self.cfg = cfg
@@ -86,8 +91,9 @@ class Trainer:
         if self.device_mode:
             from .device_data import DeviceData, make_epoch_fn
 
-            self.device_data = DeviceData(dataset.store, cfg.data["frame_stack"],
-                                          grayscale_store=cfg.model["grayscale"], device=self.device)
+            self.device_data = device_data if device_data is not None else DeviceData(
+                dataset.store, cfg.data["frame_stack"], grayscale_store=cfg.model["grayscale"],
+                device=self.device)
             self.epoch_fn = make_epoch_fn(self.device_data, self.step_fn, self.steps_per_epoch, bs)
         self.timer = StageTimer()
         self._rng = np.random.default_rng(seed)

@@ -8,7 +8,8 @@ stays -1 in both), brake is equal, and throttle and steer agree within
 test_torch_expert.JIT_TOL: JAX's CLI runs the expert jitted, where XLA's
 FMAs move the steer by up to 2.3e-4 of JAX's own op-by-op value
 (test_torch_expert.py holds the expert to JAX op by op at 1e-5). Also the
-``--replay`` round trip, ``--video`` and the ``--xosc`` refusal.
+``--replay`` round trip, ``--video`` and ``--xosc`` refusing an
+unsupported storyboard.
 """
 
 import functools
@@ -105,5 +106,12 @@ def test_seed_draws_are_per_seed():
 
 
 def test_xosc_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        collect.main(["--xosc", "a.xosc", "--out", str(tmp_path)], device="cpu")
+    """--xosc refuses a storyboard that places the hero by RoadPosition
+    (it needs the OpenDRIVE map), as env/xosc.py does, and writes nothing
+    (tests/test_torch_xosc.py holds the supported ones to JAX)."""
+    from gabril_carla_tpu_torch.data.vendored import xosc_example
+
+    with pytest.raises(ValueError, match="RoadPosition"):
+        collect.main(["--xosc", str(xosc_example("FollowLeadingVehicle.xosc")),
+                      "--out", str(tmp_path)], device="cpu")
+    assert not any(tmp_path.iterdir())

@@ -14,6 +14,7 @@ calc_scores reading the tree back.
 
 import functools
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -107,10 +108,18 @@ def ckpts(tmp_path_factory):
     return trained(str(tmp_path_factory.mktemp("runs")))
 
 
-def test_cli_refuses_waiting_parts(tmp_path):
-    for flag in (["--xosc", "a.xosc"], ["--video"]):
-        with pytest.raises(NotImplementedError, match="M1[34]"):
-            eval_routes.main(["--checkpoint", str(tmp_path)] + flag, device="cpu")
+def test_cli_refuses_waiting_parts(tmp_path, monkeypatch):
+    """eval_routes refuses, before it loads a checkpoint, what it cannot
+    run: a storyboard that needs the OpenDRIVE map (RoadPosition), and
+    --video where cv2 does not import (the error names cv2)."""
+    from gabril_carla_tpu_torch.data.vendored import xosc_example
+
+    with pytest.raises(ValueError, match="RoadPosition"):
+        eval_routes.main(["--checkpoint", str(tmp_path), "--xosc",
+                          str(xosc_example("FollowLeadingVehicle.xosc"))], device="cpu")
+    monkeypatch.setitem(sys.modules, "cv2", None)  # cv2 made unimportable
+    with pytest.raises(ImportError, match="cv2"):
+        eval_routes.main(["--checkpoint", str(tmp_path), "--video"], device="cpu")
 
 
 def test_agent_rebuilds_policy_and_predictor(ckpts):

@@ -115,8 +115,9 @@ def test_port_runs_without_jax():
     """In a fresh interpreter where jax and flax cannot be imported, every
     module of the port imports (the eval agent and CLIs included), a 3-tick
     CPU rollout runs, one CPU train step (Reg with GMD), one gaze-predictor
-    step and a 2-tick ViSaRL rollout on analytic gaze; no module of the JAX
-    package gets loaded."""
+    step, a 2-tick ViSaRL rollout on analytic gaze, an xosc storyboard's
+    compile and a gaze-statistics transform; no module of the JAX package
+    gets loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
@@ -169,6 +170,12 @@ def test_port_runs_without_jax():
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=2, use_analytic_gaze=True)
         st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, device="cpu")
         assert bool(torch.isfinite(trace).all())
+        from gabril_carla_tpu_torch.data.gaze_stats import humanize_gaze_coords
+        from gabril_carla_tpu_torch.data.vendored import xosc_example
+        from gabril_carla_tpu_torch.env.world import build_world_spec
+        from gabril_carla_tpu_torch.env.xosc import load_xosc
+        assert build_world_spec(load_xosc(xosc_example("CyclistCrossing.xosc"))).route_len > 50
+        assert humanize_gaze_coords(torch.rand(20, 10).numpy()).shape == (20, 10)
         bad = [m for m in sys.modules if m == "gabril_carla_tpu" or m.startswith("gabril_carla_tpu.")]
         assert not bad, bad
         print("ok")
