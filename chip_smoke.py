@@ -103,10 +103,21 @@ Phases, each fatal on failure:
      storyboard's route; generate_pseudo_gaze from the screen boxes of every
      collected tick; build_confounded over CONFOUND_EPISODES of phase 14's
      episodes, the card's output bitwise the CPU's; eval_routes --video, an
-     mp4 read back where cv2 imports, else an ImportError naming cv2.
+     mp4 read back where cv2 imports, else an ImportError naming cv2;
+ 19. multi-GPU on torch.distributed: the card's machine has one card, so
+     NCCL at world size 1 (a one-rank group through a file rendezvous): the
+     all-reduced full-width BC step bitwise the plain step, the all-reduce's
+     and both steps' times; the sharded eval (rollout_routes with a mesh) on
+     the 20 routes, DIST_TICKS ticks, its final states and trace bitwise
+     those without a mesh from the same key, K1 launched ticks + 1 times and
+     held to its plain version at the final state; dryrun_multichip(1,
+     "cuda") with its four legs, the 180x320 bf16 one included; then
+     dryrun_multichip(2, "cpu") (two gloo processes) in a subprocess, and
+     env_draws' host time for DRAWS_SIZES, fatal above 5% of its stage.
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
-the pipeline's, the protocol's and the tools' numbers, the card line, and last
+the pipeline's, the protocol's, the tools' and phase 19's numbers, the card
+line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -1699,6 +1710,189 @@ def tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
     return rec, by_path, max(errs)
 
 
+DIST_BATCH = 64  # phase 19: the all-reduced step's batch (full width, bf16, gaze None)
+DIST_TICKS, DIST_KEY = 40, 19  # phase 19: the sharded eval's ticks and key on the 20 routes
+DRAWS_SIZES = ((20, 1600), (120, 900))  # phase 19: env_draws of one eval split, the collection
+# the wall times of those stages in the real-size protocol on the card
+# (PERF.md section 5): a split's eval and the collection; env_draws must stay
+# under 5% of them
+DRAWS_STAGE_S = {(20, 1600): 49.0, (120, 900): 39.0}
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str):
+    """A process group of this process alone (world size 1), joined
+    through a file rendezvous in a temporary directory."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rdzv", rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def trees_equal(a, b) -> bool:
+    from gabril_carla_tpu_torch.parallel.mesh import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def allreduce_step_check(mesh, batch_size: int = DIST_BATCH) -> dict:
+    """The full-width bf16 BC step (gaze None, so no scatter of heat) with
+    the mesh's 'data' group against the same step without one, from one
+    state and batch under cuDNN's deterministic algorithms: the new
+    parameters, optimizer state and metrics bitwise equal, with a second
+    plain step as the control. Then the time of one all-reduce of the
+    step's gradient and metric bucket, and of both steps (CUDA events).
+    Fatal on a mismatch."""
+    import torch.distributed as dist
+
+    from gabril_carla_tpu_torch.parallel.mesh import data_group, pmean
+    from gabril_carla_tpu_torch.train.bc import init_bc_state, loss_and_grads, make_bc_train_step
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+
+    cfg = bench_train_cfg(batch_size)
+    cfg["gaze"]["method"] = "None"
+    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, 10)
+    models, state = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx, "cuda")
+    batch = bench_batch(cfg, batch_size, "cuda")
+    group = data_group(mesh)
+    plain, grouped = make_bc_train_step(models, cfg), make_bc_train_step(models, cfg, group)
+
+    def outcome(step):
+        new, metrics = step(state, batch, None)
+        return new.params, new.opt_state, metrics
+
+    with cudnn_deterministic():
+        first, control, reduced = outcome(plain), outcome(plain), outcome(grouped)
+    control_ok, equal = trees_equal(first, control), trees_equal(first, reduced)
+    _, metrics, grads = loss_and_grads(models, cfg, state.params, batch)
+    floats = sum(v.numel() for v in (*grads.values(), *metrics.values()))
+    ar_ms = time_ms(lambda: pmean((grads, metrics), group), 20)
+    step_ms = time_ms(lambda: plain(state, batch, None), 5)
+    grouped_ms = time_ms(lambda: grouped(state, batch, None), 5)
+    log(f"[distributed] BC step at batch {batch_size} (full width, bf16): grouped step bitwise the "
+        f"plain one {equal} (plain twice: {control_ok}); one all-reduce of {floats} float32 "
+        f"({4 * floats / 2**20:.2f} MiB) {ar_ms:.4f} ms at world size {dist.get_world_size()}; step "
+        f"{step_ms:.3f} ms plain, {grouped_ms:.3f} ms grouped")
+    if not (control_ok and equal):
+        raise SystemExit("chip_smoke: the all-reduced step differs from the plain one at world size 1")
+    return {"batch": batch_size, "bitwise": equal, "bucket_floats": floats, "allreduce_ms": ar_ms,
+            "step_ms": step_ms, "grouped_step_ms": grouped_ms}
+
+
+def sharded_eval_check(mesh, policy, cfg, params, specs, ticks: int, key_seed: int = DIST_KEY) -> dict:
+    """rollout_routes over ``specs`` with the mesh against without it, the
+    same key (twice without, as the control), under cuDNN's deterministic
+    algorithms: final states and traces bitwise equal, the render kernel
+    launched ticks + 1 times in the sharded run, and its frames at the final
+    state held to the plain version (FLIP_PX, BAR_ABS). Fatal on a
+    failure."""
+    import torch.distributed as dist
+
+    from gabril_carla_tpu_torch.env.world import to_torch
+    from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn, rollout_routes
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
+    fn = make_rollout_fn(policy, cfg, steps=ticks)
+    key = prng_key(key_seed)
+    walls = {}
+
+    def run(name, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout_routes(specs, params, fn, key, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    with cudnn_deterministic():
+        ref = run("plain")
+        control = run("plain_again")
+        render_kernel.launches = 0
+        got = run("sharded", mesh=mesh)
+        launches = render_kernel.launches
+    control_ok, equal = trees_equal(ref, control), trees_equal(ref, got)
+    n = specs.route_len.shape[0]
+    err = kernel_vs_plain(f"the sharded eval's {n} worlds after {ticks} ticks",
+                          operands(to_torch(specs, "cuda"), got[0]))
+    log(f"[distributed] sharded eval, {n} worlds x {ticks} ticks at world size "
+        f"{dist.get_world_size()}: states and trace bitwise the unsharded ones {equal} "
+        f"(unsharded twice: {control_ok}); render launches {launches} (want {ticks + 1}); "
+        f"wall s plain {walls['plain']:.3f}, {walls['plain_again']:.3f}, "
+        f"sharded {walls['sharded']:.3f}")
+    if not (control_ok and equal) or launches != ticks + 1:
+        raise SystemExit("chip_smoke: the sharded eval differs from rollout_routes without a mesh")
+    return {"worlds": n, "ticks": ticks, "bitwise": equal, "launches": launches, "max_abs_err": err,
+            "wall_s": walls}
+
+
+def distributed_phase(card: str, policy, cfg, params, base) -> tuple[dict, int, float]:
+    """Phase 19: NCCL at world size 1 (the all-reduced step, the sharded
+    eval, dryrun_multichip(1, "cuda")), dryrun_multichip(2, "cpu") in a
+    subprocess, and env_draws' host time at DRAWS_SIZES."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.dryrun import dryrun_multichip
+    from gabril_carla_tpu_torch.parallel import make_mesh
+    from gabril_carla_tpu_torch.utils.prng import env_draws, prng_key
+
+    out = {}
+    t0 = time.perf_counter()
+    with one_rank_group("nccl"):
+        mesh = make_mesh(device="cuda")
+        out["nccl_init_s"] = time.perf_counter() - t0
+        out["step"] = allreduce_step_check(mesh)
+        out["eval"] = sharded_eval_check(mesh, policy, cfg, params, base, DIST_TICKS)
+        t0 = time.perf_counter()
+        out["dryrun_cuda"] = dryrun_multichip(1, "cuda")
+        out["dryrun_cuda"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    code = ("import json; from gabril_carla_tpu_torch.dryrun import dryrun_multichip; "
+            "print(json.dumps(dryrun_multichip(2, 'cpu')))")
+    from pathlib import Path
+
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+                         cwd=str(Path(__file__).resolve().parent))
+    for line in res.stdout.splitlines()[:-1]:
+        log(f"[distributed] {line}")
+    if res.returncode != 0:
+        raise SystemExit(f"chip_smoke: dryrun_multichip(2, 'cpu') failed:\n{res.stderr[-3000:]}")
+    out["dryrun_cpu2"] = json.loads(res.stdout.splitlines()[-1])
+    out["dryrun_cpu2"]["wall_s"] = time.perf_counter() - t0
+    out["env_draws_s"] = {}
+    for b, steps in DRAWS_SIZES:
+        keys = np.stack([prng_key(s * 100003 + 3100) for s in range(b)])
+        t0 = time.perf_counter()
+        env_draws(keys, steps)
+        dt = time.perf_counter() - t0
+        share = dt / DRAWS_STAGE_S[(b, steps)]
+        out["env_draws_s"][f"{b}x{steps}"] = dt
+        log(f"[distributed] env_draws for {b} worlds x {steps} ticks: {dt:.4f} s on the host, "
+            f"{100 * share:.2f}% of the stage's {DRAWS_STAGE_S[(b, steps)]:.0f} s (bar 5%)")
+        if share > 0.05:
+            raise SystemExit("chip_smoke: env_draws takes over 5% of its stage")
+    log(f"[distributed] dryrun_multichip(1, 'cuda') {out['dryrun_cuda']['wall_s']:.1f} s, "
+        f"(2, 'cpu') {out['dryrun_cpu2']['wall_s']:.1f} s in a subprocess; on {card}")
+    return out, out["eval"]["launches"], out["eval"]["max_abs_err"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1860,11 +2054,17 @@ def main() -> int:
         tools, tools_launches, tools_err = tools_phase(card, episodes, tmp)
         max_err = max(max_err, tools_err)
         log(f"[phases] 18 in {time.perf_counter() - t_phase:.1f} s")
+
+    # 19. multi-GPU on torch.distributed, at world size 1 on this card
+    t_phase = time.perf_counter()
+    distributed, dist_launches, dist_err = distributed_phase(card, policy, cfg, params, base)
+    max_err = max(max_err, dist_err)
+    log(f"[phases] 19 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
                "eval_routes": eval_launches, "collect": collect_launches, **protocol_launches,
-               **tools_launches}
+               **tools_launches, "sharded eval": dist_launches}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
@@ -1878,6 +2078,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"tools": tools}))
+    print(json.dumps({"distributed": distributed}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

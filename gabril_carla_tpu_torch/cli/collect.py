@@ -8,9 +8,9 @@ Replaces the reference's HumanAgent collection (eval/my_agents/
 human_agent.py: wheel/keyboard and a Gazepoint eye tracker) with expert
 rollouts: rendered observations, expert actions and analytic gaze from the
 scene graph. The seeds run as the worlds of one batched rollout, each tick
-one render launch for all of them. Each seed's env draws come from its own
-generator seeded with the seed, so a seed writes the same episode alone or
-beside others. Per seed, <out>/route_<id>/seed_<seed>/ gets
+one render launch for all of them. Each seed's env draws are JAX's for the key
+``PRNGKey(seed)`` (utils/prng.py), so a seed writes the same episode alone
+or beside others, and the JAX package's episode. Per seed, <out>/route_<id>/seed_<seed>/ gets
 observations.npz (uint8 [n, 180, 320, 3]), actions.npz, gaze.npz (n its
 world's own ticks up to done) and stats.json. ``--replay`` re-executes a
 recorded actions.npz (human_agent.py:146-148), ``--video`` adds
@@ -29,22 +29,22 @@ import torch
 
 from ..data.vendored import routes_path
 from ..env.criteria import compute_score
-from ..env.env import DRAWS_PER_STEP, DrivingEnv
+from ..env.env import DrivingEnv
 from ..env.expert import expert_action
 from ..env.world import build_world_spec, load_benchmark_specs, spec_rows, stack_specs, to_torch
 from ..env.xosc import load_xosc
 from ..eval.stats import route_record, write_stats_json
 from ..ops.raster import analytic_gaze, render_frame
+from ..utils.prng import env_draws, prng_key
 
 GAZE_POINTS = 5
 
 
 def seed_draws(seeds, steps: int, device) -> torch.Tensor:
-    """[steps, len(seeds), 4] env draws, each seed's column from its own
-    generator seeded with the seed."""
-    return torch.stack([torch.rand((steps, DRAWS_PER_STEP), device=device,
-                                   generator=torch.Generator(device=device).manual_seed(s))
-                        for s in seeds], 1)
+    """[steps, len(seeds), 4] env draws on ``device``: each seed's column is
+    JAX's draws for a world reset on ``PRNGKey(seed)`` (JAX
+    cli/collect.py:78), computed on the host."""
+    return torch.from_numpy(env_draws(np.stack([prng_key(s) for s in seeds]), steps)).to(device)
 
 
 @torch.inference_mode()

@@ -8,11 +8,12 @@ instead of one CARLA server per route per seed driven by bash loops
 
 Resume parity with RouteIndexer.validate_and_resume (route_indexer.py:
 40-93): pairs whose stats.json exists are skipped unless --no-resume. Each
-pair's env draws come from its own generator seeded with
-seed * 100003 + route, so a resumed subset writes the same stats.json as a
-full run. ``--xosc`` evaluates one OpenSCENARIO storyboard (env/xosc.py) as
-a world of its own; ``--video`` writes each pair's rendered frames as
-rollout.mp4 beside its stats.json (cv2, imported only then).
+pair's env draws are JAX's for the key ``PRNGKey(seed * 100003 + route)``
+(utils/prng.py), so a pair's stats.json is the JAX package's, and a
+resumed subset writes the same stats.json as a full run. ``--xosc``
+evaluates one OpenSCENARIO storyboard (env/xosc.py) as a world of its own;
+``--video`` writes each pair's rendered frames as rollout.mp4 beside its
+stats.json (cv2, imported only then).
 """
 
 from __future__ import annotations
@@ -29,21 +30,20 @@ import torch
 from ..data.tasks import TASK_TO_ROUTE
 from ..data.vendored import routes_path
 from ..env.criteria import compute_score
-from ..env.env import DRAWS_PER_STEP
 from ..env.world import build_world_spec, load_benchmark_specs, spec_rows, stack_specs, to_torch
 from ..env.xosc import load_xosc
 from ..eval.agent import BCAgent
 from ..eval.rollout import make_rollout_fn, needs_heat
 from ..eval.stats import aggregate_scores, route_record, write_stats_json
+from ..utils.prng import env_draws, prng_key
 
 
 def pair_draws(pairs, steps: int, device) -> torch.Tensor:
-    """[steps, len(pairs), 4] env draws, each pair's column from its own
-    generator seeded with seed * 100003 + route."""
-    cols = [torch.rand((steps, DRAWS_PER_STEP), device=device,
-                       generator=torch.Generator(device=device).manual_seed(s * 100003 + r))
-            for r, s in pairs]
-    return torch.stack(cols, 1)
+    """[steps, len(pairs), 4] env draws on ``device``: each pair's column is
+    JAX's draws for a world reset on ``PRNGKey(seed * 100003 + route)``
+    (JAX cli/eval_routes.py:111), computed on the host."""
+    keys = np.stack([prng_key(s * 100003 + r) for r, s in pairs])
+    return torch.from_numpy(env_draws(keys, steps)).to(device)
 
 
 def main(argv=None, device="cuda"):

@@ -6,14 +6,14 @@ examples/full_benchmark.py).
 
 Reproduces the reference's experimental protocol (BASELINE.md) on one card:
 collect expert demonstrations on the 10 seen routes (every (route, train
-seed) pair a world of one batched collection, each drawing from a generator
-seeded seed * 1000 + route), turn the analytic gaze into eye-tracker-like
+seed) pair a world of one batched collection, each drawing JAX's numbers
+for the key PRNGKey(seed * 1000 + route)), turn the analytic gaze into eye-tracker-like
 gaze (data/gaze_stats.py), optionally bake the confounding overlay into the
 frames, put one copy of the dataset on the card for every trainer, then per
 training seed: the frozen gaze predictor when a method needs heat, the
 VQ-VAE when one uses Oreo, and for each method spec its BC training and its
-closed-loop eval on the seen and unseen splits (each pair's draws from a
-generator seeded seed * 100003 + route). stats.json trees go under
+closed-loop eval on the seen and unseen splits (each pair's draws JAX's
+for PRNGKey(seed * 100003 + route)). stats.json trees go under
 eval_<tag>_<split>/, and report.json is rewritten after every finished
 cell, so a rerun skips the cells already in it.
 """
@@ -103,9 +103,10 @@ def method_config(ms: MethodSpec, args, train_seed: int, vqvae_path: str, out: P
 def collect_expert(specs, idx_of: dict, routes, seeds, steps: int, curvature_gaze: bool,
                    device) -> tuple[EpisodeStore, list[dict]]:
     """Every (route, seed) pair, route-major, as one world of one collection
-    of ``steps`` ticks; pair (r, s) draws from a generator seeded
-    s * 1000 + r. Each episode is cut at its world's own tick count, the
-    frames kept as grayscale [n, H, W, 1]. Returns the store and the
+    of ``steps`` ticks; pair (r, s) draws JAX's numbers for the key
+    PRNGKey(s * 1000 + r) (examples/full_benchmark.py:145). Each episode
+    is cut at its world's own tick count, the frames kept as grayscale
+    [n, H, W, 1]. Returns the store and the
     expert's stats.json records."""
     pairs = [(r, s) for r in routes for s in seeds]
     rows = np.asarray([idx_of[r] for r, _ in pairs])

@@ -2,6 +2,10 @@
 vlm_gaze/train/train_bc.py surface, Hydra -> dotted overrides).
 
     python -m gabril_carla_tpu_torch.cli.train_bc [--config YAML] [--resume RUN_DIR] key.sub=value ...
+    torchrun --nproc_per_node N -m gabril_carla_tpu_torch.cli.train_bc ...
+
+Under torchrun (parallel/distributed.py) the run is data parallel over
+the N ranks, one card each (train/loop.py).
 
 ``data.hdf5_path`` reads a robomimic-schema HDF5 (data.gaze_key,
 data.num_episodes; h5py is imported only then); without it the run trains
@@ -13,7 +17,10 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import torch.distributed as dist
+
 from ..data.dataset import BCDataset, load_hdf5, synthetic_episodes
+from ..parallel import make_mesh, maybe_init_distributed
 from ..train.loop import Trainer
 from ..utils.config import default_bc_config, load_config
 
@@ -30,6 +37,14 @@ def build_dataset(cfg) -> BCDataset:
                                    max_points=cfg.gaze.get("max_points", 5),
                                    action_dim=cfg.data["action_dim"])
     return BCDataset(store, frame_stack=cfg.data["frame_stack"])
+
+
+def launch_mesh(device):
+    """The ('data', 'model') mesh over torchrun's ranks when there are more
+    than one, else None (a run without a launcher, or of one rank)."""
+    if maybe_init_distributed(device) and dist.get_world_size() > 1:
+        return make_mesh(device=device)
+    return None
 
 
 def parse(argv, base: dict, resume: bool = True):
@@ -59,7 +74,7 @@ def parse(argv, base: dict, resume: bool = True):
 
 def main(argv=None, mode: str = "bc", device="cuda"):
     cfg, run_dir = parse(argv, default_bc_config().to_dict())
-    trainer = Trainer(cfg, build_dataset(cfg), mode=mode, device=device)
+    trainer = Trainer(cfg, build_dataset(cfg), mode=mode, device=device, mesh=launch_mesh(device))
     metrics = trainer.train(resume=run_dir is not None)
     print("Training completed!", metrics)
     return 0

@@ -3,6 +3,7 @@ makes the checkpoint Oreo's dropout loads (``dropout.vqvae_path`` =
 <run>/checkpoints/ep<N>).
 
     python -m gabril_carla_tpu_torch.cli.train_vqvae [--config YAML] key.sub=value ...
+    torchrun --nproc_per_node N -m gabril_carla_tpu_torch.cli.train_vqvae ...  (data parallel)
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from . import train_bc
 
 def main(argv=None, device="cuda"):
     cfg, _ = train_bc.parse(argv, default_bc_config().to_dict(), resume=False)
-    trainer = Trainer(cfg, train_bc.build_dataset(cfg), mode="vqvae", device=device)
+    trainer = Trainer(cfg, train_bc.build_dataset(cfg), mode="vqvae", device=device,
+                      mesh=train_bc.launch_mesh(device))
     metrics = trainer.train()
     print("Training completed!", metrics)
     return 0

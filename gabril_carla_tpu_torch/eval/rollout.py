@@ -21,17 +21,24 @@ compute dtype itself), brake binarization in the codec.
 
 Randomness: each env step takes four uniforms per world (env.DRAWS_PER_STEP),
 drawn from a caller-seeded torch.Generator on the worlds' device, or given
-outright as ``draws [steps, B, 4]`` (the parity tests replay JAX's).
+outright as ``draws [steps, B, 4]``. ``rollout_routes`` gives JAX's: each
+world's draws from its own key of ``split(key, n)`` (utils/prng.py; JAX
+:153), so a world's draws do not depend on how the worlds are sharded.
+With a mesh, each 'data' rank rolls its ``n / data`` worlds and every rank
+gets all ``n`` back (JAX's ``P("data")`` placement of the specs).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..env.env import DRAWS_PER_STEP, DrivingEnv
-from ..env.world import to_torch
+from ..env.world import spec_rows, to_torch
 from ..ops.heatmap import GazeHeatmapper
 from ..ops.raster import analytic_gaze, confounded_overlay, render_frame
+from ..parallel.mesh import all_gather_rows, data_rank, data_size
+from ..utils.prng import env_draws, split
 
 WARMUP_STEPS = 10
 HARD_STOP = 2000  # = fps * 100
@@ -49,7 +56,8 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
                     lower_window: bool = False):
     """Build rollout(spec, params, generator=None, draws=None) -> (final
     state, trace): trace is the ego positions [steps, B, 2], or the rendered
-    frames [steps, B, H, W] with ``return_frames``. ``far_decimate`` and
+    frames [steps, B, H, W] with ``return_frames``. ``rollout.steps`` is
+    ``steps``. ``far_decimate`` and
     ``lower_window`` go to every ``render_frame`` call.
 
     policy_fn(params, obs [B, H, W, S], heat [B, H, W, S] or None) -> [B, 7]
@@ -118,6 +126,7 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
             trace.append(frame if return_frames else state.ego.pos)
         return state, torch.stack(trace)
 
+    rollout.steps = steps
     return rollout
 
 
@@ -128,11 +137,28 @@ def to_device(params: dict, device) -> dict:
             for k, v in params.items()}
 
 
-def rollout_routes(specs, params, rollout_fn, seed: int = 0, draws=None, device="cuda"):
-    """Run ``rollout_fn`` over a stacked numpy WorldSpec (env/world.py:
-    load_benchmark_specs / stack_specs) on ``device``, with ``params`` moved
-    there and the step draws from a generator seeded with ``seed``."""
-    spec = to_torch(specs, device)
-    params = to_device(params, device)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    return rollout_fn(spec, params, generator=generator, draws=draws)
+def rollout_routes(specs, params, rollout_fn, key, device="cuda", mesh=None):
+    """Run ``rollout_fn`` (make_rollout_fn) over the n worlds of a stacked
+    numpy WorldSpec (env/world.py: load_benchmark_specs / stack_specs) on
+    ``device``, with ``params`` moved there and world i's env draws JAX's
+    for the key ``split(key, n)[i]`` (``key``: a threefry key,
+    utils/prng.py prng_key).
+
+    ``mesh`` (parallel/mesh.py): 'data' rank r rolls worlds [r * m, (r + 1)
+    * m), m = n / data, on their rows of the draws, then the final states
+    and the traces are gathered so every rank returns all n worlds."""
+    n = specs.route_len.shape[0]
+    draws = env_draws(split(key, n), rollout_fn.steps)
+    rows = np.arange(n)
+    if mesh is not None:
+        d = data_size(mesh)
+        if n % d:
+            raise ValueError(f"{n} worlds do not split over {d} 'data' ranks")
+        m = n // d
+        rows = rows[data_rank(mesh) * m:(data_rank(mesh) + 1) * m]
+    spec = to_torch(spec_rows(specs, rows), device)
+    state, trace = rollout_fn(spec, to_device(params, device),
+                              draws=torch.from_numpy(draws[:, rows]).to(device))
+    if mesh is None:
+        return state, trace
+    return all_gather_rows(state, mesh), all_gather_rows(trace, mesh, dim=1)

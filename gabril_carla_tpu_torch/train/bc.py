@@ -39,6 +39,7 @@ from ..models.heads import MLP, Actor, PreActor
 from ..models.vq import VectorQuantizer
 from ..ops.gaze import gaze_mask_from_latent, gmd_dropout
 from ..ops.heatmap import GazeHeatmapper
+from ..parallel.mesh import pmean
 from .optim import TrainState, masked
 
 GAZE_METHODS = ("None", "Teacher", "Reg", "Mask", "Contrastive", "ViSaRL", "AGIL", "GRIL")
@@ -383,14 +384,19 @@ def loss_and_grads(models: BCModels, cfg, params: dict, batch, rng=None, train: 
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_bc_train_step(models: BCModels, cfg):
+def make_bc_train_step(models: BCModels, cfg, group=None):
     """(state, batch, rng) -> (new state, metrics): autograd of bc_loss_fn,
     then the optimizer the state carries. ``rng`` is a torch.Generator on
     the batch's device or the step's draws (module docstring). The state
-    passed in is left as it was."""
+    passed in is left as it was. With a process ``group`` the gradients
+    and metrics are averaged over it in one all-reduce before the
+    optimizer (parallel/mesh.py pmean; JAX bc.py:327-329), so every rank
+    applies the same update."""
 
     def step(state: TrainState, batch, rng=None):
         _, metrics, grads = loss_and_grads(models, cfg, state.params, batch, rng)
+        if group is not None:
+            grads, metrics = pmean((grads, metrics), group)
         return state.apply_gradients(grads), metrics
 
     return step

@@ -22,6 +22,7 @@ from ..models.encoder import AutoEncoder
 from ..models.unet import UNet
 from ..ops.heatmap import GazeHeatmapper
 from .bc import _dtype, full_f32
+from ..parallel.mesh import pmean
 from .optim import TrainState
 
 
@@ -118,12 +119,16 @@ def gaze_loss_and_grads(model, heatmapper, cfg, params: dict, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_gaze_train_step(model: nn.Module, heatmapper: GazeHeatmapper, cfg):
+def make_gaze_train_step(model: nn.Module, heatmapper: GazeHeatmapper, cfg, group=None):
     """(state, batch, rng) -> (new state, metrics). The step draws nothing;
-    ``rng`` is accepted for the epoch loop's sake and ignored."""
+    ``rng`` is accepted for the epoch loop's sake and ignored. With a
+    process ``group``, gradients and metrics are averaged over it before
+    the optimizer (JAX gaze_predictor.py:85-87)."""
 
     def step(state: TrainState, batch, rng=None):
         _, metrics, grads = gaze_loss_and_grads(model, heatmapper, cfg, state.params, batch)
+        if group is not None:
+            grads, metrics = pmean((grads, metrics), group)
         return state.apply_gradients(grads), metrics
 
     return step

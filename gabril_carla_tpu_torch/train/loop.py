@@ -1,5 +1,5 @@
-"""Trainer: the BC, gaze-predictor and VQ-VAE epoch loop on one device (port
-of gabril_carla_tpu/train/loop.py).
+"""Trainer: the BC, gaze-predictor and VQ-VAE epoch loop (port of
+gabril_carla_tpu/train/loop.py).
 
 BaseTrainer's epoch loop (train/common/base_trainer.py:116-192) maps to:
 with the dataset resident on the device, one epoch of steps that gather
@@ -9,8 +9,17 @@ shuffled numpy batches, each copied to the device for one train step.
 Full-state resume: ``save_resume`` / ``restore_resume`` carry the params,
 the optimizer state, the step count, the step generator's state, numpy's
 bit-generator state and the keep-best trackers, so a killed run continues
-bit for bit (``train(resume=True)``). Sharding over several devices waits
-in ROADMAP.md (M12).
+bit for bit (``train(resume=True)``).
+
+Data parallel over the 'data' ranks of a mesh (parallel/mesh.py; one
+process per rank under torchrun): device-resident epochs shard whole
+episodes over the ranks (train/device_data.py ShardedDeviceData) when there
+are at least as many episodes as ranks; the host-batch path cuts every
+batch into per-rank rows (``shard_batch``). Either way the train step
+averages gradients and metrics over the ranks in one all-reduce, so the
+parameters stay bitwise replicated. Otherwise every rank runs the
+replicated single-device path. Only the mesh's first rank writes
+checkpoints, params.json, resume states and metrics; every rank restores.
 """
 
 from __future__ import annotations
@@ -20,9 +29,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import BCDataset
+from ..parallel.mesh import broadcast_state, data_group, data_size, first_rank, shard_batch
 from ..utils.logging import ExperimentLogger
+from ..utils.prng import prng_key, split
 from ..utils.profiling import StageTimer
 from .bc import init_bc_state, make_bc_train_step
 from .checkpoint import (latest_resume_state, load_resume_tree, restore_params, save_manifest,
@@ -45,11 +57,13 @@ class Trainer:
     'vqvae' (Oreo's quantizer pretraining) on ``device``."""
 
     def __init__(self, cfg, dataset: BCDataset, mode: str = "bc", device="cuda",
-                 device_data=None):
+                 device_data=None, mesh=None):
         """``device_data``: an existing DeviceData of this dataset on
-        ``device``, used as it is in device mode, so that successive
+        ``device``, used as it is in single-device mode, so that successive
         Trainers (the protocol's gaze predictor, VQ-VAE and every method)
-        share one copy of the frames on the card."""
+        share one copy of the frames on the card. ``mesh``: a ('data',
+        'model') DeviceMesh (parallel/mesh.py make_mesh) to train data
+        parallel over its 'data' ranks (module docstring)."""
         if mode not in ("bc", "gaze", "vqvae"):
             raise ValueError(f"unknown mode {mode}")
         self.cfg = cfg
@@ -63,32 +77,61 @@ class Trainer:
         self.steps_per_epoch = spe
         tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, spe)
         seed = cfg.get_path("training.seed", 0)
-        # device-resident data: the whole dataset in device memory, each
-        # epoch a loop of steps that gather on the device. "auto" takes it
-        # when the frames stay under 40 GB of the card's 80 GB and are in
-        # memory (a lazy, disk-backed store streams by construction).
+        self.mesh = mesh
+        n_data = data_size(mesh) if mesh is not None else 1
+        # sharding assigns whole episodes to ranks, so it needs at least one
+        # episode a rank (JAX loop.py:61)
+        can_shard = n_data > 1 and dataset.store.n_demos >= n_data
+        # device-resident data: the whole dataset (or this rank's shard) in
+        # device memory, each epoch a loop of steps that gather on the
+        # device. "auto" takes it when a shard's frames stay under 40 GB of
+        # the card's 80 GB and are in memory (a lazy, disk-backed store
+        # streams by construction).
         lazy = dataset.store.lazy
         dd = cfg.get_path("training.device_data", "auto")
         if dd == "auto":
-            dd = sum(x.nbytes for x in dataset.store.images) < 40e9 and not lazy
+            per_shard = sum(x.nbytes for x in dataset.store.images) / (n_data if can_shard else 1)
+            dd = per_shard < 40e9 and not lazy
         elif dd and lazy:
             raise ValueError("training.device_data needs the images in memory: load the HDF5 "
                              "with cache_images=True")
         self.device_mode = bool(dd)
+        self._sharded_device = self.device_mode and can_shard
+        # the all-reduce: sharded epochs, or the host path's per-rank rows
+        group = None
+        if n_data > 1 and (self._sharded_device or not self.device_mode):
+            group = data_group(mesh)
 
-        self.logger = ExperimentLogger(cfg)
+        self._is_main = mesh is None or dist.get_rank() == first_rank(mesh)
+        self.logger = ExperimentLogger(cfg, write=self._is_main)
+        if mesh is not None:  # every rank takes the first rank's run directory
+            name = [self.logger.run_name]
+            dist.broadcast_object_list(name, src=first_rank(mesh))
+            if not self._is_main:
+                self.logger = ExperimentLogger(cfg, run_name=name[0], write=False)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         if mode == "bc":
             self.models, self.state = init_bc_state(cfg, gen, tx, self.device)
-            self.step_fn = make_bc_train_step(self.models, cfg)
+            self.step_fn = make_bc_train_step(self.models, cfg, group)
         elif mode == "gaze":
             (self.model, self.heatmapper), self.state = init_gaze_state(cfg, gen, tx, self.device)
-            self.step_fn = make_gaze_train_step(self.model, self.heatmapper, cfg)
+            self.step_fn = make_gaze_train_step(self.model, self.heatmapper, cfg, group)
         else:
             self.model, self.state = init_vqvae_state(cfg, gen, tx, self.device)
-            self.step_fn = make_vqvae_train_step(self.model, cfg)
+            self.step_fn = make_vqvae_train_step(self.model, cfg, group)
             self._revive_fn = make_revive_dead_codes(self.model, cfg)
-        if self.device_mode:
+        if mesh is not None:
+            broadcast_state(self.state, mesh)
+        if self._sharded_device:
+            from .device_data import ShardedDeviceData, make_sharded_epoch_fn
+
+            self._local_bs = max(1, bs // n_data)
+            self.device_data = ShardedDeviceData(dataset.store, cfg.data["frame_stack"], mesh,
+                                                 grayscale_store=cfg.model["grayscale"],
+                                                 device=self.device)
+            self.epoch_fn = make_sharded_epoch_fn(self.device_data, self.step_fn,
+                                                  self.steps_per_epoch, self._local_bs)
+        elif self.device_mode:
             from .device_data import DeviceData, make_epoch_fn
 
             self.device_data = device_data if device_data is not None else DeviceData(
@@ -98,6 +141,9 @@ class Trainer:
         self.timer = StageTimer()
         self._rng = np.random.default_rng(seed)
         self._step_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # the sharded epochs' key: split once an epoch, then folded with the
+        # rank (device_data.make_sharded_epoch_fn)
+        self._step_key = prng_key(seed + 1)
         self._global_step = 0
         self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
         if mode == "bc":
@@ -125,7 +171,14 @@ class Trainer:
         self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
         start_epoch = self.restore_resume() if resume else 0
         for epoch in range(start_epoch, epochs):
-            if self.device_mode:
+            if self._sharded_device:
+                with self.timer.stage("epoch"):
+                    perm = self.device_data.epoch_perm(self._rng, self.steps_per_epoch,
+                                                       self._local_bs)
+                    self._step_key, sub = split(self._step_key)
+                    self.state, metrics = self.epoch_fn(self.state, perm, sub)
+                    avg = {k: float(v) for k, v in metrics.items()}
+            elif self.device_mode:
                 with self.timer.stage("epoch"):
                     perm = torch.from_numpy(self._rng.permutation(self.device_data.n_samples))
                     self.state, metrics = self.epoch_fn(self.state, perm, self._step_gen)
@@ -134,6 +187,8 @@ class Trainer:
                 totals, count = {}, 0
                 for batch in self.dataset.iter_batches(bs, self._rng):
                     with self.timer.stage("data"):
+                        if self.mesh is not None:
+                            batch = shard_batch(batch, self.mesh)
                         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
                     with self.timer.stage("step"):
                         self.state, metrics = self.step_fn(self.state, batch, self._step_gen)
@@ -174,7 +229,11 @@ class Trainer:
         """Between VQ-VAE epochs: re-seed the codebook rows no latent of the
         first REVIVE_PROBE samples maps to (vqvae.make_revive_dead_codes),
         with draws from a generator seeded REVIVE_SEED + epoch. The probe
-        batch is gathered on the device when the dataset lives there."""
+        batch is gathered on the device when the dataset lives there. Under
+        sharding the codes' usage is shard-local, so nothing is revived and
+        the count is -1 (JAX loop.py:230-232)."""
+        if self._sharded_device:
+            return -1
         if self.device_mode:
             n = min(REVIVE_PROBE, self.device_data.n_samples)
             batch = self.device_data.gather(torch.arange(n, device=self.device))
@@ -188,27 +247,37 @@ class Trainer:
         return int(dead)
 
     def save(self, epoch: int):
-        save_params(self.logger.ckpt_dir, epoch, self.state.params)
-        if self.cfg.get_path("logging.save_params", True):
-            extra = None
-            if self.mode != "bc":
-                extra = {"model_type": "gaze_predictor" if self.mode == "gaze" else self.mode}
-            save_manifest(self.logger.ckpt_dir, self.cfg, epoch, extra=extra)
+        if self._is_main:
+            save_params(self.logger.ckpt_dir, epoch, self.state.params)
+            if self.cfg.get_path("logging.save_params", True):
+                extra = None
+                if self.mode != "bc":
+                    extra = {"model_type": "gaze_predictor" if self.mode == "gaze" else self.mode}
+                save_manifest(self.logger.ckpt_dir, self.cfg, epoch, extra=extra)
+        self._written()
+
+    def _written(self):
+        """Under a mesh, every rank waits until the first has written."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def save_resume(self, epoch_done: int):
         """Full-state checkpoint after ``epoch_done`` epochs (checkpoint.py:
-        save_resume_state)."""
-        tree = {"params": self.state.params, "opt_state": self.state.opt_state,
-                "step": self.state.step, "step_gen": self._step_gen.get_state()}
-        if self._best_params is not None:
-            tree["best_params"] = self._best_params
-        save_resume_state(self.logger.ckpt_dir, epoch_done, tree, {
-            "global_step": self._global_step,
-            "rng_state": self._rng.bit_generator.state,
-            "best_loss": self._best_loss,
-            "best_epoch": self._best_epoch,
-            "has_best": self._best_params is not None,
-        })
+        save_resume_state); the mesh's first rank writes it."""
+        if self._is_main:
+            tree = {"params": self.state.params, "opt_state": self.state.opt_state,
+                    "step": self.state.step, "step_gen": self._step_gen.get_state(),
+                    "step_key": torch.from_numpy(self._step_key.astype(np.int64))}
+            if self._best_params is not None:
+                tree["best_params"] = self._best_params
+            save_resume_state(self.logger.ckpt_dir, epoch_done, tree, {
+                "global_step": self._global_step,
+                "rng_state": self._rng.bit_generator.state,
+                "best_loss": self._best_loss,
+                "best_epoch": self._best_epoch,
+                "has_best": self._best_params is not None,
+            })
+        self._written()
 
     def restore_resume(self) -> int:
         """Restore the newest complete resume checkpoint of this run's
@@ -222,6 +291,7 @@ class Trainer:
                                          opt_state=tree_to(tree["opt_state"], self.device),
                                          step=int(tree["step"]))
         self._step_gen.set_state(tree["step_gen"])
+        self._step_key = tree["step_key"].numpy().astype(np.uint32)
         self._best_params = tree_to(tree["best_params"], self.device) if meta["has_best"] else None
         self._global_step = int(meta["global_step"])
         self._best_loss = float(meta["best_loss"])

@@ -23,6 +23,7 @@ from ..models.vq import VectorQuantizer
 from ..ops.image import format_obs_stack, stack_window_indices
 from .bc import _dtype, full_f32
 from .gaze_predictor import init_convs
+from ..parallel.mesh import pmean
 from .optim import TrainState
 
 
@@ -97,12 +98,16 @@ def vqvae_loss_and_grads(model: VQVAE, cfg, params: dict, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_vqvae_train_step(model: VQVAE, cfg):
+def make_vqvae_train_step(model: VQVAE, cfg, group=None):
     """(state, batch, rng) -> (new state, metrics). The step draws nothing;
-    ``rng`` is accepted for the epoch loop's sake and ignored."""
+    ``rng`` is accepted for the epoch loop's sake and ignored. With a
+    process ``group``, gradients and metrics are averaged over it before
+    the optimizer (JAX vqvae.py:70-72)."""
 
     def step(state: TrainState, batch, rng=None):
         _, metrics, grads = vqvae_loss_and_grads(model, cfg, state.params, batch)
+        if group is not None:
+            grads, metrics = pmean((grads, metrics), group)
         return state.apply_gradients(grads), metrics
 
     return step

@@ -34,14 +34,23 @@ def encode_run_name(cfg, tag: str = "") -> str:
 
 
 class ExperimentLogger:
-    def __init__(self, cfg, task: str = "", tag: str = ""):
+    """``run_name`` (default: logging.run_name, else a fresh timestamped
+    name) names the run directory. ``write=False`` makes a logger that
+    creates, writes and prints nothing: the data-parallel ranks but the
+    first (train/loop.py)."""
+
+    def __init__(self, cfg, task: str = "", tag: str = "", run_name: str | None = None,
+                 write: bool = True):
         root = Path(cfg.get_path("logging.log_dir", "runs"))
         # an explicit run_name pins the run directory; default is a fresh
         # timestamped name
-        self.run_name = (cfg.get_path("logging.run_name", "")
+        self.run_name = (run_name or cfg.get_path("logging.run_name", "")
                          or encode_run_name(cfg, tag or cfg.get_path("tag", "")))
         self.log_dir = root / (task or cfg.get_path("data.task", "task")) / self.run_name
         self.ckpt_dir = self.log_dir / "checkpoints"
+        self.write = write
+        if not write:
+            return
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self._metrics_path = self.log_dir / "metrics.jsonl"
         (self.log_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
@@ -58,6 +67,8 @@ class ExperimentLogger:
                 self._tb = SummaryWriter(log_dir=str(self.log_dir / "tb"))
 
     def log_scalars(self, step: int, scalars: dict):
+        if not self.write:
+            return
         rec = {"step": step, "t": round(time.monotonic() - self._t0, 3)}
         rec.update({k: float(v) for k, v in scalars.items()})
         with self._metrics_path.open("a") as f:
@@ -68,4 +79,5 @@ class ExperimentLogger:
                     self._tb.add_scalar(k, v, step)
 
     def print(self, msg: str):
-        print(f"[{self.run_name}] {msg}", flush=True)
+        if self.write:
+            print(f"[{self.run_name}] {msg}", flush=True)

@@ -20,7 +20,8 @@ tie; each heat rollout launches the kernel ticks + 1 times; the expert
 within chip_smoke.EXPERT_TOL of the CPU with equal brakes, the VQ-VAE as
 chip_smoke.vqvae_agrees says, and a resumed Oreo run bitwise equal to the
 whole one (chip_smoke.run_resume_check), collection launching the kernel
-once a tick.
+once a tick; at world size 1 on NCCL, the all-reduced step bitwise the
+plain one and the sharded eval bitwise rollout_routes without a mesh.
 """
 
 import itertools
@@ -237,3 +238,42 @@ def test_collect_and_resume_on_card(cuda, tmp_path):
     vq = next((tmp_path / "runs").glob("Vq/*/checkpoints")) / "ep1"
     res = run_resume_check(tmp_path / "eps", vq, tmp_path / "resume")
     assert not res["params"] and not res["opt_state"] and res["step"][0] == res["step"][1], res
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group (the card's machine has one card) and its
+    ('data', 'model') mesh."""
+    from chip_smoke import one_rank_group
+    from gabril_carla_tpu_torch.parallel import make_mesh
+
+    with one_rank_group("nccl"):
+        yield make_mesh(device="cuda")
+
+
+def test_allreduce_step_bitwise_at_world_size_1(nccl_mesh):
+    """The BC step with the mesh's all-reduce equals the step without a
+    group, bitwise (chip_smoke.allreduce_step_check, batch 8)."""
+    from chip_smoke import allreduce_step_check
+
+    assert allreduce_step_check(nccl_mesh, batch_size=8)["bitwise"]
+
+
+def test_sharded_eval_equals_unsharded(nccl_mesh):
+    """rollout_routes with the mesh equals it without, bitwise, on 3 real
+    routes x 12 ticks; K1 launches ticks + 1 times and matches its plain
+    version (chip_smoke.sharded_eval_check)."""
+    from chip_smoke import THROTTLE_BIAS, sharded_eval_check
+    from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params
+    from gabril_carla_tpu_torch.utils.config import default_bc_config
+
+    cfg = default_bc_config()
+    cfg["gaze"]["method"] = "None"
+    cfg["training"]["compute_dtype"] = "float32"
+    cfg["model"].update(num_hiddens=8, embedding_dim=8, z_dim=16, num_residual_hiddens=4)
+    models = build_bc_models(cfg, "cuda")
+    params = init_bc_params(models, cfg, torch.Generator(device="cuda").manual_seed(0))
+    params["actor.fc2.bias"][0] = THROTTLE_BIAS
+    out = sharded_eval_check(nccl_mesh, make_bc_policy_fn(models, cfg), cfg, params,
+                             load_benchmark_specs(seen_routes()[:3]), 12)
+    assert out["bitwise"] and out["launches"] == 13

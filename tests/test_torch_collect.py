@@ -7,9 +7,10 @@ within 1e-4, stats.json is equal (it carries no wall time: duration_system
 stays -1 in both), brake is equal, and throttle and steer agree within
 test_torch_expert.JIT_TOL: JAX's CLI runs the expert jitted, where XLA's
 FMAs move the steer by up to 2.3e-4 of JAX's own op-by-op value
-(test_torch_expert.py holds the expert to JAX op by op at 1e-5). Also the
-``--replay`` round trip, ``--video`` and ``--xosc`` refusing an
-unsupported storyboard.
+(test_torch_expert.py holds the expert to JAX op by op at 1e-5). The port
+run with its own draws (utils/prng.py, nothing replayed) meets the same
+bars. Also the ``--replay`` round trip, ``--video`` and ``--xosc`` refusing
+an unsupported storyboard.
 """
 
 import functools
@@ -62,13 +63,20 @@ def runs(tmp):
 
 
 @pytest.fixture(scope="module")
+def own(tmp_path_factory):
+    """The port's collect.main drawing its own numbers."""
+    out = tmp_path_factory.mktemp("own_collect")
+    assert collect.main(ARGS + ["--out", str(out)], device="cpu") == 0
+    return out
+
+
+@pytest.fixture(scope="module")
 def root(tmp_path_factory):
     return runs(str(tmp_path_factory.mktemp("collect")))
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_episode_matches_jax(root, seed):
-    (want, want_stats), (got, got_stats) = episode(root / "jax", seed), episode(root / "port", seed)
+def assert_episode_matches(got_root, want_root, seed):
+    (want, want_stats), (got, got_stats) = episode(want_root, seed), episode(got_root, seed)
     n = len(want["actions"])
     assert n > 0 and all(len(v) == n for v in got.values())
     assert got["observations"].dtype == np.uint8 and got["observations"].shape == (n, 180, 320, 3)
@@ -80,6 +88,17 @@ def test_episode_matches_jax(root, seed):
     assert got_stats == want_stats
     # the expert drove: some throttle, and a valid road fixation
     assert (got["actions"][:, 0] > 0).any() and (got["gaze"][:, 0] >= 0).any()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_episode_matches_jax(root, seed):
+    assert_episode_matches(root / "port", root / "jax", seed)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_own_draws_episode_matches_jax(root, own, seed):
+    """Without JAX's draws replayed: the port's seed_draws are JAX's."""
+    assert_episode_matches(own, root / "jax", seed)
 
 
 def test_replay_round_trip(root, tmp_path):

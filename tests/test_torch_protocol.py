@@ -9,7 +9,10 @@ examples/full_benchmark.py) and the Trainer's shared ``device_data``.
   whose worlds finish early, and route 3100) equals per-pair runs of
   cli.collect.collect seeded seed * 1000 + route (tests/test_torch_collect.py
   holds collect to JAX), episode by episode, route-major, each cut at its
-  world's own state.t, bitwise on the CPU.
+  world's own state.t, bitwise on the CPU; and, drawing its own numbers
+  (utils/prng.py), JAX's per-pair collection from PRNGKey(seed * 1000 +
+  route) (examples/full_benchmark.py:113-126, 145) at
+  tests/test_torch_collect.py's bars.
 * The host confound against JAX's ops/raster.confounded_overlay on the same
   uint8 frames and actions: 255 on its dot mask where brake > 0.8, 242 on
   its bar mask, every other pixel unchanged.
@@ -108,13 +111,18 @@ SHORT_ID, REAL_ID, SEEDS, STEPS = 7, 3100, (200, 201), 34
 
 
 @functools.lru_cache(maxsize=None)
-def collection():
-    """The protocol's collection and the per-pair collect runs it must equal."""
+def collection_specs():
+    """A 6 m route and route 3100, stacked."""
     wps = np.stack([np.arange(0.0, 6.0, 2.0), np.zeros(3)], 1).astype(np.float32)
     short = build_world_spec({"id": SHORT_ID, "town": "T", "waypoints": wps, "scenarios": [],
                               "weather": [0, 0, 0, 90], "weather_keys": []}, n_scen=1)
-    real = load_benchmark_specs([REAL_ID])
-    specs = stack_specs([short, spec_rows(real, 0)])
+    return stack_specs([short, spec_rows(load_benchmark_specs([REAL_ID]), 0)])
+
+
+@functools.lru_cache(maxsize=None)
+def collection():
+    """The protocol's collection and the per-pair collect runs it must equal."""
+    specs = collection_specs()
     idx_of = {SHORT_ID: 0, REAL_ID: 1}
     store, records = fb.collect_expert(specs, idx_of, [SHORT_ID, REAL_ID], SEEDS, STEPS, True,
                                        "cpu")
@@ -150,6 +158,65 @@ def test_collection_equals_per_pair_collect():
     # the seeds' draws differ, and a pair's seed is seed * 1000 + route
     a, b = (port_collect.seed_draws([s * 1000 + REAL_ID], 4, "cpu") for s in SEEDS)
     assert not torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_collection():
+    """JAX's protocol collection of each pair alone: the jitted scan of
+    examples/full_benchmark.py:113-126 (curvature gaze) from
+    PRNGKey(seed * 1000 + route), on the same worlds."""
+    import dataclasses
+
+    import gabril_carla_tpu.env.world as JW
+    from gabril_carla_tpu.env.criteria import compute_score as j_score
+    from gabril_carla_tpu.env.env import DrivingEnv as JEnv
+    from gabril_carla_tpu.env.expert import expert_action as j_expert
+    from gabril_carla_tpu.eval.stats import route_record as j_record
+    from gabril_carla_tpu.ops.raster import analytic_gaze as j_gaze
+    from gabril_carla_tpu.ops.raster import render_frame as j_render
+
+    env = JEnv()
+
+    @jax.jit
+    def collect(spec, key):
+        def tick(state, _):
+            frame = j_render(spec, state)
+            gaze = j_gaze(spec, state, curvature_anticipation=True)
+            action = j_expert(spec, state)
+            return env.step(spec, state, action), (frame, action, gaze)
+
+        state, outs = jax.lax.scan(tick, env.reset(spec, key), None, length=STEPS)
+        return state, (outs[0] * 255.0).astype(jnp.uint8), outs[1], outs[2]
+
+    specs = collection_specs()
+    out = []
+    for i, r in enumerate((SHORT_ID, REAL_ID)):
+        spec = JW.WorldSpec(**{f.name: jnp.asarray(getattr(specs, f.name)[i])
+                               for f in dataclasses.fields(JW.WorldSpec)})
+        for s in SEEDS:
+            st, frames, actions, gazes = collect(spec, jax.random.PRNGKey(s * 1000 + r))
+            n = int(st.t)
+            rec = j_record(r, s, j_score(spec, st), duration_game=n * 0.05,
+                           route_length=float(spec.route_len))
+            out.append((n, np.asarray(frames[:n]), np.asarray(actions[:n]), np.asarray(gazes[:n]),
+                        rec))
+    return out
+
+
+def test_collection_own_draws_match_jax():
+    """The protocol's batched collection, drawing its own numbers, against
+    JAX's per-pair collection."""
+    from test_torch_expert import JIT_TOL
+
+    store, records, _ = collection()
+    for d, (n, frames, actions, gazes, rec) in enumerate(jax_collection()):
+        assert store.images[d].shape[0] == n > 0
+        diff = np.abs(store.images[d][..., 0].astype(np.int16) - frames.astype(np.int16))
+        assert (diff > 0).mean() < 0.01 and np.median(diff) == 0
+        np.testing.assert_array_equal(store.actions[d][:, 2:], actions[:, 2:])
+        np.testing.assert_allclose(store.actions[d][:, :2], actions[:, :2], rtol=0, atol=JIT_TOL)
+        np.testing.assert_allclose(store.gazes[d], gazes, rtol=0, atol=1e-4)
+        assert records[d] == rec
 
 
 # --- the host confound ----------------------------------------------------------

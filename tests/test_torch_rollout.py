@@ -4,9 +4,10 @@ render -> policy -> env step -> score, closed loop.
 A 30-tick closed-loop rollout of three real routes with a small-width
 float32 policy (converted flax parameters) and JAX's replayed draws, against
 gabril_carla_tpu.eval.rollout.make_rollout_fn vmapped: the ego position
-trace within 1e-3 m and the final scores within 1e-3. Also: the port runs
-with JAX made unimportable, and the rollout's contract (launch-free on the
-CPU, warm-up no-ops, draws checked).
+trace within 1e-3 m and the final scores within 1e-3; the same through
+``rollout_routes`` with JAX's key and the port's own draws (utils/prng.py).
+Also: the port runs with JAX made unimportable, and the rollout's contract
+(launch-free on the CPU, warm-up no-ops, draws checked).
 """
 
 import functools
@@ -33,6 +34,7 @@ from gabril_carla_tpu_torch.eval import rollout as PRO
 from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
+from gabril_carla_tpu_torch.utils.prng import prng_key
 from test_torch_common import port_spec, rollout_draws
 
 TICKS = 30
@@ -86,6 +88,24 @@ def test_closed_loop_matches_jax():
         np.testing.assert_allclose(have[k].numpy(), np.asarray(want[k]), atol=1e-3, err_msg=k)
 
 
+def test_rollout_routes_matches_jax():
+    """rollout_routes(key=PRNGKey(5)) splits the key per world as JAX's
+    rollout_routes does (JAX eval/rollout.py:153): the JAX run above,
+    without replaying its draws."""
+    from gabril_carla_tpu_torch.env.world import load_benchmark_specs as port_specs
+
+    specs, _, params, ref, trace = jax_run()
+    cfg, policy, state_dict = port_policy(params)
+    fn = PRO.make_rollout_fn(policy, cfg, steps=TICKS)
+    st, got = PRO.rollout_routes(port_specs(seen_routes()[:3]), state_dict, fn, prng_key(5),
+                                 device="cpu")
+    assert np.abs(got.numpy().transpose(1, 0, 2) - trace).max() < 1e-3
+    want = jax.vmap(compute_score)(specs, ref)
+    have = port_score(port_spec(jax.tree.map(np.asarray, specs)), st)
+    for k in ("score_route", "score_penalty", "score_composed"):
+        np.testing.assert_allclose(have[k].numpy(), np.asarray(want[k]), atol=1e-3, err_msg=k)
+
+
 def test_rollout_routes_entry_and_warmup():
     """rollout_routes moves a numpy spec to the device; the first ticks are
     full-brake no-ops, so nothing moves during them."""
@@ -93,7 +113,7 @@ def test_rollout_routes_entry_and_warmup():
     from gabril_carla_tpu_torch.env.world import load_benchmark_specs as port_specs
 
     fn = PRO.make_rollout_fn(policy, cfg, steps=PRO.WARMUP_STEPS)
-    st, trace = PRO.rollout_routes(port_specs(seen_routes()[:2]), state_dict, fn, seed=0,
+    st, trace = PRO.rollout_routes(port_specs(seen_routes()[:2]), state_dict, fn, prng_key(0),
                                    device="cpu")
     assert trace.shape == (PRO.WARMUP_STEPS, 2, 2)
     assert torch.equal(trace[0], trace[-1]) and (st.ego.speed == 0).all()
@@ -113,8 +133,9 @@ def test_rollout_checks_draws():
 
 def test_port_runs_without_jax():
     """In a fresh interpreter where jax and flax cannot be imported, every
-    module of the port imports (the eval agent and CLIs included), a 3-tick
-    CPU rollout runs, one CPU train step (Reg with GMD), one gaze-predictor
+    module of the port imports (the eval agent, CLIs, parallel/, utils/prng
+    and dryrun included), a 3-tick CPU rollout runs, alone and on a
+    one-rank gloo mesh, one CPU train step (Reg with GMD), one gaze-predictor
     step, a 2-tick ViSaRL rollout on analytic gaze, an xosc storyboard's
     compile and a gaze-statistics transform; no module of the JAX package
     gets loaded."""
@@ -136,8 +157,18 @@ def test_port_runs_without_jax():
         models = build_bc_models(cfg, device="cpu")
         params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=3)
-        st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, device="cpu")
+        from gabril_carla_tpu_torch.utils.prng import prng_key
+        st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, prng_key(0), device="cpu")
         assert trace.shape == (3, 1, 2) and bool(torch.isfinite(trace).all())
+        import tempfile
+        import torch.distributed as dist
+        from gabril_carla_tpu_torch.parallel import make_mesh
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=0, world_size=1)
+            st1, trace1 = rollout_routes(load_benchmark_specs([3100]), params, fn, prng_key(0),
+                                         device="cpu", mesh=make_mesh(device="cpu"))
+            dist.destroy_process_group()
+        assert torch.equal(trace1, trace) and torch.equal(st1.ego.pos, st.ego.pos)
         from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
         from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step
         from gabril_carla_tpu_torch.train.optim import build_optimizer
@@ -168,7 +199,7 @@ def test_port_runs_without_jax():
         models = build_bc_models(cfg, device="cpu")
         params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=2, use_analytic_gaze=True)
-        st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, device="cpu")
+        st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, prng_key(1), device="cpu")
         assert bool(torch.isfinite(trace).all())
         from gabril_carla_tpu_torch.data.gaze_stats import humanize_gaze_coords
         from gabril_carla_tpu_torch.data.vendored import xosc_example

@@ -10,7 +10,8 @@ CPU against JAX's CLIs, with JAX's draws replayed: eval_routes on a
 checkpoint saved by each package with the same weights (the actor's last
 layer zeroed, its throttle bias raised, so both packages' bf16 policies
 give the same constant action and the worlds' own dynamics are what is
-compared), stats.json equal but for the wall time; collect at
+compared), stats.json equal but for the wall time, also when the port
+draws its own numbers (utils/prng.py); collect at
 tests/test_torch_collect.py's bars.
 """
 
@@ -193,6 +194,27 @@ def test_eval_routes_xosc_matches_jax(evals, seed):
     assert got["route_id"] == f"RouteScenario_{rid}"
     # the constant throttle drove the ego along the storyboard's route
     assert got["scores"]["score_route"] > 0
+
+
+@pytest.mark.parametrize("seed", EVAL_SEEDS)
+def test_eval_routes_own_draws_match_jax(evals, tmp_path_factory, seed):
+    """eval_routes drawing its own numbers (utils/prng.py, nothing
+    replayed) writes JAX's stats.json."""
+    root, rid = evals
+    own = own_eval(str(root), str(tmp_path_factory.getbasetemp()))
+    one = f"route_{rid}/seed_{seed}/stats.json"
+    want = json.loads((root / "jax" / one).read_text())
+    assert without_wall(json.loads((own / one).read_text())) == without_wall(want)
+
+
+@functools.lru_cache(maxsize=None)
+def own_eval(root, base):
+    out = Path(base) / "xosc_own_eval"
+    args = ["--xosc", str(xosc_example(f"{EVAL_XOSC}.xosc")), "--steps", str(EVAL_STEPS),
+            "--seeds", *map(str, EVAL_SEEDS)]
+    assert eval_routes.main(["--checkpoint", str(Path(root) / "port_ckpt"), "--out", str(out)]
+                            + args, device="cpu") == 0
+    return out
 
 
 def test_eval_routes_video(evals):
