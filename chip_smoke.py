@@ -113,11 +113,32 @@ Phases, each fatal on failure:
      held to its plain version at the final state; dryrun_multichip(1,
      "cuda") with its four legs, the 180x320 bf16 one included; then
      dryrun_multichip(2, "cpu") (two gloo processes) in a subprocess, and
-     env_draws' host time for DRAWS_SIZES, fatal above 5% of its stage.
+     env_draws' host time for DRAWS_SIZES, fatal above 5% of its stage;
+ 20. the host-batch path: an in-memory store of HOST_DEMOS x HOST_STEPS
+     frames at 180x320x3 uint8; BCDataset.sample through the native gather
+     (csrc/gather.cpp, built with g++) bitwise equal to the numpy loop at
+     the episode edges and on HOST_BATCHES random batches of 2,000, each
+     gather's median ms and a batch's copy to the card; then the BC Trainer
+     at bench_train.py's configuration with training.device_data false, one
+     epoch (2 steps) a run, two runs with each gather in turns: samples/s,
+     StageTimer's data and step ms;
+     fatal unless the batches are equal and the losses finite;
+ 21. human driving and the tools: HumanLoop's core (start, tick, save) on
+     route HUMAN_ROUTE from seed HUMAN_SEED, one world, the scripted
+     HUMAN_KEYS through a KeyboardController with dummy gaze, then
+     PROFILE_TICKS more inside profile_trace; each tick's wall ms beside the
+     50 ms of JAX's 20 fps loop. Fatal unless K1 launched once a tick and
+     the trace names render_kernel once a profiled tick, the four files
+     hold one row a tick and stats.json names the pair, cli/collect's
+     collect replaying the recorded actions with the seed's draws gives
+     the recorded frames bitwise and the same record, K1 matches its plain
+     version at the final state; then visualize.panels on the card against
+     the CPU on one of phase 14's episodes (heat within VIZ_TOL, uint8
+     panels within one level).
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
-the pipeline's, the protocol's, the tools' and phase 19's numbers, the card
-line, and last
+the pipeline's, the protocol's, the tools', phase 19's, 20's and 21's
+numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -1893,6 +1914,245 @@ def distributed_phase(card: str, policy, cfg, params, base) -> tuple[dict, int, 
     return out, out["eval"]["launches"], out["eval"]["max_abs_err"]
 
 
+# --- the host-batch path, human driving and the tools (phases 20-21) ----------
+
+HOST_DEMOS, HOST_STEPS = 8, 500  # phase 20: 4,000 frames at 180x320x3 (691 MB a batch of 2,000)
+HOST_BATCHES = 5  # phase 20: timed batches of each gather
+HUMAN_ROUTE, HUMAN_SEED = 3100, 200  # phase 21
+# phase 21's scripted drive (200 ticks), then PROFILE_TICKS more inside profile_trace
+HUMAN_KEYS = ([{"up"}] * 80 + [{"up", "left"}] * 30 + [{"up", "right"}] * 30 + [{"up"}] * 40
+              + [{"down"}] * 20)
+PROFILE_TICKS = 10
+HUMAN_FPS_MS = 50.0  # JAX eval/human.py:145: fps=20.0, the budget of one tick
+VIZ_FRAMES, VIZ_STRIDE, VIZ_TOL = 60, 2, 1e-5  # phase 21: cli/visualize.py's defaults
+
+
+def host_store():
+    """Phase 20's in-memory store: HOST_DEMOS x HOST_STEPS frames of
+    180x320x3 uint8 with synthetic_episodes' gaze and actions."""
+    from gabril_carla_tpu_torch.data.dataset import synthetic_episodes
+
+    return synthetic_episodes(n_demos=HOST_DEMOS, steps=HOST_STEPS, seed=0).finalize()
+
+
+def gathers_agree(store, batch_size: int, reps: int, seed: int = 0) -> tuple[bool, dict, dict]:
+    """BCDataset.sample through the native library and through the numpy
+    loop on the same indices: the episode edges, then ``reps`` random
+    batches of ``batch_size``. Returns (all bitwise equal, native ms, numpy
+    ms per random batch)."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.data.dataset import BCDataset
+
+    fast, loop = BCDataset(store, 2), BCDataset(store, 2, use_native=False)
+    starts = store.offsets
+    edges = np.concatenate([starts, starts + 1, starts + store.lengths - 1])
+    same = all(np.array_equal(a, b) for a, b in zip(fast.sample(edges).values(),
+                                                     loop.sample(edges).values()))
+    rng = np.random.default_rng(seed)
+    ms = {"native": [], "numpy": []}
+    for _ in range(reps):
+        idx = rng.permutation(len(fast))[:batch_size]
+        got = {}
+        for name, ds in (("native", fast), ("numpy", loop)):
+            t0 = time.perf_counter()
+            got[name] = ds.sample(idx)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        same = same and all(np.array_equal(got["native"][k], got["numpy"][k]) for k in got["native"])
+    return same, ms["native"], ms["numpy"]
+
+
+def host_batch_phase(card: str, tmp) -> dict:
+    """Phase 20: the native gather against the numpy loop on HOST_DEMOS x
+    HOST_STEPS full-size frames (bitwise, then timed), a batch's copy to the
+    card, and the BC Trainer on its host-batch path (training.device_data
+    false) at bench_train.py's configuration, one epoch a run, two runs with
+    each gather in turns."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.data.dataset import BCDataset
+    from gabril_carla_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    store = host_store()
+    made_s = time.perf_counter() - t0
+    same, nat, loop = gathers_agree(store, TRAIN_BATCH, HOST_BATCHES)
+    batch = BCDataset(store, 2).sample(np.arange(TRAIN_BATCH))
+    nbytes = sum(v.nbytes for v in batch.values())
+    copies = []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+        torch.cuda.synchronize()
+        copies.append((time.perf_counter() - t0) * 1e3)
+    out = {"frames": int(store.lengths.sum()), "store_s": made_s, "batch_bytes": nbytes,
+           "native_ms": float(np.median(nat)), "numpy_ms": float(np.median(loop)),
+           "copy_ms": float(np.median(copies)), "equal": same}
+    log(f"[host] {out['frames']} frames of 180x320x3 uint8 made in {made_s:.1f} s; batch {TRAIN_BATCH} "
+        f"({nbytes / 1e6:.1f} MB): native gather median {out['native_ms']:.2f} ms, numpy loop "
+        f"{out['numpy_ms']:.2f} ms over {HOST_BATCHES} batches; the batch's copy to the card "
+        f"{out['copy_ms']:.2f} ms; native and numpy bitwise equal (episode edges included): {same}; on {card}")
+    if not same:
+        raise SystemExit("chip_smoke: the native gather disagrees with the numpy loop")
+    runs = {"native": [], "numpy": []}
+    for i, name in enumerate(("numpy", "native", "native", "numpy")):  # in turns
+        cfg = bench_train_cfg()
+        cfg["training"].update(epochs=1, device_data=False)
+        cfg["logging"]["log_dir"] = f"{tmp}/host_{i}"
+        trainer = Trainer(cfg, BCDataset(store, 2, use_native=name == "native"), mode="bc")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = trainer.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stages = trainer.timer.summary()
+        rec = {"steps": trainer.steps_per_epoch, "epoch_s": dt,
+               "samples_per_s": trainer.steps_per_epoch * TRAIN_BATCH / dt, "loss": last["loss"],
+               "data_ms": stages["data"]["mean_ms"], "step_ms": stages["step"]["mean_ms"]}
+        runs[name].append(rec)
+        log(f"[host] Trainer run {i + 1}, host batches through the {name} gather: {rec['steps']} steps "
+            f"of {TRAIN_BATCH} in {dt:.3f} s, {rec['samples_per_s']:.1f} samples/s; StageTimer data "
+            f"(the copy) {rec['data_ms']:.1f} ms, step (enqueue) {rec['step_ms']:.1f} ms; loss "
+            f"{last['loss']:.5f}; on {card}")
+        if trainer.device_mode or not all(math.isfinite(v) for v in last.values()):
+            raise SystemExit(f"chip_smoke: the host-batch Trainer ({name}) gave a non-finite loss")
+    out["trainer"] = runs
+    return out
+
+
+def human_drive(device, out_dir, keys, profile_dir=None, profile_ticks: int = 0):
+    """Phase 21's drive: HumanLoop's core on HUMAN_ROUTE from HUMAN_SEED,
+    one tick per entry of ``keys`` through a KeyboardController, dummy gaze
+    from seed 0; then ``profile_ticks`` more of throttle inside
+    profile_trace(profile_dir). Returns (loop, drive launches, profiled
+    launches, per-tick wall ms of the drive)."""
+    from gabril_carla_tpu_torch.env.world import load_benchmark_specs
+    from gabril_carla_tpu_torch.eval.human import GazeSource, HumanLoop, KeyboardController
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.utils.profiling import profile_trace
+
+    loop = HumanLoop(load_benchmark_specs([HUMAN_ROUTE]), out_dir, gaze="dummy", device=device)
+    loop.gaze = GazeSource("dummy", seed=0)
+    ctrl = KeyboardController()
+    loop.start(HUMAN_SEED)
+    walls = []
+    render_kernel.launches = 0
+    for k in keys:
+        t0 = time.perf_counter()
+        loop.tick(ctrl.action({name: True for name in k}), loop.gaze.sample())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = render_kernel.launches
+    profiled = 0
+    if profile_ticks:
+        render_kernel.launches = 0
+        with profile_trace(profile_dir):
+            for _ in range(profile_ticks):
+                loop.tick(ctrl.action({"up": True}), loop.gaze.sample())
+            torch.cuda.synchronize()
+        profiled = render_kernel.launches
+    return loop, launches, profiled, walls
+
+
+def human_replay(loop, ep) -> tuple[bool, bool, dict]:
+    """cli/collect.collect on the loop's spec with the recorded actions and
+    the seed's draws: (frames bitwise the recorded ones, the same
+    stats.json scores, the replay's record)."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.cli.collect import collect, seed_draws
+    from gabril_carla_tpu_torch.env.criteria import compute_score
+    from gabril_carla_tpu_torch.eval.stats import route_record
+
+    obs = np.load(ep / "observations.npz")["observations"]
+    acts = np.load(ep / "actions.npz")["actions"]
+    n = len(acts)
+    dev = loop.spec_t.route_len.device
+    st, frames, _, _ = collect(loop.spec_t, n, seed_draws([loop.seed], n, dev), torch.from_numpy(acts).to(dev))
+    score = {k: v[0].cpu() for k, v in compute_score(loop.spec_t, st).items()}
+    rec = route_record(int(loop.spec.route_id[0]), loop.seed, score, duration_game=n * 0.05,
+                       route_length=float(loop.spec.route_len[0]))
+    rec = json.loads(json.dumps(rec))  # as stats.json holds it
+    stats = json.loads((ep / "stats.json").read_text())
+    return bool(np.array_equal(frames[:, 0].cpu().numpy(), obs[..., 0])), rec == stats, rec
+
+
+def trace_kernel_launches(trace_dir, name: str = "render_kernel") -> int:
+    """Device kernel events named ``name`` in the Chrome traces under
+    ``trace_dir``."""
+    from pathlib import Path
+
+    n = 0
+    for f in Path(trace_dir).glob("trace_*.json"):
+        events = json.loads(f.read_text())["traceEvents"]
+        n += sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+    return n
+
+
+def human_tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
+    """Phase 21: the human loop's core on the card, its episode replayed
+    through collect, a profile_trace window, K1 at the final state, and
+    visualize.panels card against CPU on one of phase 14's episodes.
+    Returns (record, K1 launches by path, K1's error at the final state)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from gabril_carla_tpu_torch.cli.visualize import panels
+
+    t0 = time.perf_counter()
+    loop, launches, profiled, walls = human_drive("cuda", Path(tmp) / "human", HUMAN_KEYS,
+                                                  Path(tmp) / "trace", PROFILE_TICKS)
+    drive_s = time.perf_counter() - t0
+    ep = loop.save()
+    n = loop.ticks
+    files = {f: np.load(ep / f"{f}.npz")[f] for f in ("observations", "actions", "gaze")}
+    stats = json.loads((ep / "stats.json").read_text())
+    rows_ok = all(len(v) == n for v in files.values()) and files["observations"].shape[1:] == (180, 320, 3)
+    named = stats["route_id"] == f"RouteScenario_{HUMAN_ROUTE}" and stats["seed"] == HUMAN_SEED
+    in_trace = trace_kernel_launches(Path(tmp) / "trace")
+    same_frames, same_record, rec = human_replay(loop, ep)
+    err = kernel_vs_plain("the human loop's final state", operands(loop.spec_t, loop.state))
+    wall = {"median": float(np.median(walls)), "p90": float(np.percentile(walls, 90)),
+            "max": float(np.max(walls))}
+    out = {"ticks": n, "drive_s": drive_s, "tick_ms": wall, "fps_budget_ms": HUMAN_FPS_MS,
+           "launches": launches, "profiled_launches": profiled, "trace_launches": in_trace,
+           "score_composed": stats["scores"]["score_composed"], "replay_frames_equal": same_frames,
+           "replay_record_equal": same_record}
+    log(f"[human] route {HUMAN_ROUTE} seed {HUMAN_SEED}: {len(HUMAN_KEYS)} scripted ticks + "
+        f"{PROFILE_TICKS} profiled in {drive_s:.2f} s; a tick (render, the frame's copy to the host, "
+        f"env step) median {wall['median']:.2f} ms, p90 {wall['p90']:.2f}, max {wall['max']:.2f} "
+        f"against the {HUMAN_FPS_MS:.0f} ms of a 20 fps loop; K1 launches {launches} (want "
+        f"{len(HUMAN_KEYS)}), {profiled} in the profiled window, {in_trace} render_kernel events "
+        f"in its trace (want {PROFILE_TICKS}); on {card}")
+    log(f"[human] saved {n} ticks (four files, one row a tick: {rows_ok}; stats.json names the pair: "
+        f"{named}); score_composed {stats['scores']['score_composed']:.4f}, route "
+        f"{stats['scores']['score_route']:.4f}; collect's replay: frames bitwise {same_frames}, "
+        f"record equal {same_record}")
+    if not (launches == len(HUMAN_KEYS) and profiled == in_trace == PROFILE_TICKS and rows_ok
+            and named and same_frames and same_record):
+        raise SystemExit("chip_smoke: the human loop failed a check (launches, trace, files, replay)")
+
+    viz = Path(episodes) / f"route_{COLLECT_ROUTE}" / f"seed_{COLLECT_SEEDS[0]}"
+    images = np.load(viz / "observations.npz")["observations"][: VIZ_FRAMES * VIZ_STRIDE : VIZ_STRIDE]
+    gaze = np.load(viz / "gaze.npz")["gaze"][: VIZ_FRAMES * VIZ_STRIDE : VIZ_STRIDE]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heat, tri = panels(images, gaze)
+    card_s = time.perf_counter() - t0
+    cheat, ctri = panels(images, gaze, device="cpu")
+    heat_err = float(np.abs(heat - cheat).max())
+    level = int(np.abs(tri.astype(np.int16) - ctri).max())
+    out["visualize"] = {"frames": len(images), "card_s": card_s, "heat_max_abs": heat_err,
+                        "panel_max_level": level}
+    log(f"[tools] visualize.panels on {len(images)} frames of phase 14's {viz.parent.name}/{viz.name}: "
+        f"card {card_s:.3f} s; heat against the CPU max abs {heat_err:.3g} (bar {VIZ_TOL:g}), "
+        f"uint8 panels at most {level} level apart (bar 1)")
+    if not (heat.shape == (len(images), 180, 320) and heat_err <= VIZ_TOL and level <= 1):
+        raise SystemExit("chip_smoke: visualize.panels on the card disagrees with the CPU")
+    return out, {"human": launches, "profile_trace": profiled}, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2055,16 +2315,25 @@ def main() -> int:
         max_err = max(max_err, tools_err)
         log(f"[phases] 18 in {time.perf_counter() - t_phase:.1f} s")
 
-    # 19. multi-GPU on torch.distributed, at world size 1 on this card
-    t_phase = time.perf_counter()
-    distributed, dist_launches, dist_err = distributed_phase(card, policy, cfg, params, base)
-    max_err = max(max_err, dist_err)
-    log(f"[phases] 19 in {time.perf_counter() - t_phase:.1f} s")
+        # 19. multi-GPU on torch.distributed, at world size 1 on this card
+        t_phase = time.perf_counter()
+        distributed, dist_launches, dist_err = distributed_phase(card, policy, cfg, params, base)
+        max_err = max(max_err, dist_err)
+        log(f"[phases] 19 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 20-21. the host-batch path with the native gather; human driving and the tools
+        t_phase = time.perf_counter()
+        host = host_batch_phase(card, tmp)
+        log(f"[phases] 20 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        human, human_launches, human_err = human_tools_phase(card, episodes, tmp)
+        max_err = max(max_err, human_err)
+        log(f"[phases] 21 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
                "eval_routes": eval_launches, "collect": collect_launches, **protocol_launches,
-               **tools_launches, "sharded eval": dist_launches}
+               **tools_launches, "sharded eval": dist_launches, **human_launches}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
@@ -2079,6 +2348,8 @@ def main() -> int:
     print(json.dumps({"protocol": protocol}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"host_batches": host}))
+    print(json.dumps({"human": human}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

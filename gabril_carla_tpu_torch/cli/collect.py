@@ -84,7 +84,7 @@ def main(argv=None, device="cuda"):
     src.add_argument("--xosc", help="OpenSCENARIO .xosc file (env/xosc.py subset)")
     p.add_argument("--seeds", type=int, nargs="+", default=[200])
     p.add_argument("--routes_xml", default=str(routes_path()),
-                   help="route table in the compiled routes220.json.gz format")
+                   help="route table: the compiled routes220.json.gz or the reference's bench2drive220.xml")
     p.add_argument("--steps", type=int, default=1200)
     p.add_argument("--out", default="dataset/bench2drive_tpu")
     p.add_argument("--replay", default=None, help="episode dir: re-execute its actions.npz")

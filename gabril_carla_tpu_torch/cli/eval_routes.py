@@ -51,7 +51,7 @@ def main(argv=None, device="cuda"):
     p.add_argument("--checkpoint", required=True, help="checkpoint dir containing params.json")
     p.add_argument("--epoch", type=int, default=None)
     p.add_argument("--routes_xml", default=str(routes_path()),
-                   help="route table in the compiled routes220.json.gz format")
+                   help="route table: the compiled routes220.json.gz or the reference's bench2drive220.xml")
     p.add_argument("--task", default="Mixed_", help="task name or 'Mixed_'")
     p.add_argument("--split", default="test", choices=["train", "test", "test_unseen"])
     p.add_argument("--route_id", type=int, default=None, help="single route override")

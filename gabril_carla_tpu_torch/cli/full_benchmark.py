@@ -188,8 +188,8 @@ def confound_store(store: EpisodeStore):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--routes_xml", default=None,
-                   help="route table in the compiled routes220.json.gz format "
-                        "(default: the vendored one)")
+                   help="route table: the compiled routes220.json.gz or the reference's "
+                        "bench2drive220.xml (default: the vendored routes220.json.gz)")
     p.add_argument("--junction_traffic", action=argparse.BooleanOptionalAction, default=True,
                    help="ambient junction crossing traffic in collection AND eval worlds; "
                         "--no-junction_traffic restores the junction-free env")

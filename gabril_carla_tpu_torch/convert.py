@@ -5,7 +5,8 @@ gabril_carla_tpu.train.bc.init_bc_params as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns a state dict for
 train/bc.py: BCModels; ``gaze_params_from_flax`` does the same for the gaze
 predictor (AutoEncoder or UNet), ``vqvae_params_from_flax`` for the VQ-VAE
-(train/vqvae.py: VQVAE). The maps are linear (transposes, flips and
+(train/vqvae.py: VQVAE), ``head_params_from_flax`` for ``mlp_head`` and
+``Projector`` (models/heads.py). The maps are linear (transposes, flips and
 a row permutation), so a tree of gradients converts the same way. It
 imports nothing of JAX.
 """
@@ -29,6 +30,19 @@ def _conv(p: dict) -> dict:
 def _dense(p: dict) -> dict:
     """flax Dense (kernel [in, out]) -> torch Linear (weight [out, in])."""
     return {"weight": np.transpose(p["kernel"]), "bias": p["bias"]}
+
+
+def _mlp(tree: dict, prefix: str) -> dict:
+    """flax heads.py MLP (Dense_0 .. Dense_n) -> the port's MLP layers."""
+    return {f"{prefix}layers.{i}": _dense(tree[f"Dense_{i}"]) for i in range(len(tree))}
+
+
+def head_params_from_flax(params_np: dict) -> dict:
+    """The flax tree of heads.py's ``mlp_head`` (an MLP) or ``Projector``
+    (``{"MLP_0": ...}``) as a state dict of the port's MLP or Projector."""
+    if "MLP_0" in params_np:
+        return _tensors(_mlp(params_np["MLP_0"], "mlp."))
+    return _tensors(_mlp(params_np, ""))
 
 
 def _conv_t(p: dict) -> dict:
@@ -124,8 +138,7 @@ def params_from_flax(params_np: dict, cfg) -> dict:
     if "encoder_agil" in params_np:
         named.update(_encoder(params_np["encoder_agil"], "encoder_agil", n_res))
     if "gril_head" in params_np:
-        for i in range(2):
-            named[f"gril_head.layers.{i}"] = _dense(params_np["gril_head"][f"Dense_{i}"])
+        named.update(_mlp(params_np["gril_head"], "gril_head."))
     if "quantizer" in params_np:
         named["quantizer"] = {"codebook": params_np["quantizer"]["codebook"]}
     return _tensors(named)

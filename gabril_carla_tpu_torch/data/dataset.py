@@ -1,6 +1,5 @@
 """BC dataset, host side (port of gabril_carla_tpu/data/dataset.py: the
-episode store, HDF5 loading, the synthetic episodes and the numpy gather
-path).
+episode store, HDF5 loading, the synthetic episodes and the batch gather).
 
 Schema (vlm_gaze/data_utils/bench2drive_to_hdf5.py:21-56): per episode
 images [T, H, W, 3] uint8, gaze [T, P*2] float32 in [0, 1] with -1 padding,
@@ -10,7 +9,9 @@ frame_stack=S, front padding): one sample per timestep t, the window
 
 Batches are numpy dicts; heatmaps, grayscale and stacking run on the device
 inside the train step. ``load_hdf5`` imports h5py only when it is called.
-The threaded native gather waits in ROADMAP.md.
+In-memory uint8 stores gather their batches with the threaded native
+library (native/: g++ at first use); lazy stores, whose images stay on
+disk, take the numpy loop.
 """
 
 from __future__ import annotations
@@ -154,9 +155,12 @@ def synthetic_episodes(
 
 
 class BCDataset:
-    """Windowed BC sampler over an EpisodeStore (numpy gather)."""
+    """Windowed BC sampler over an EpisodeStore. In-memory uint8 stores
+    assemble batches with the native threaded-memcpy library (native/; a
+    failed build raises); lazy stores and ``use_native=False`` take the
+    numpy loop."""
 
-    def __init__(self, store: EpisodeStore, frame_stack: int = 2):
+    def __init__(self, store: EpisodeStore, frame_stack: int = 2, use_native: bool = True):
         self.store = store.finalize()
         self.frame_stack = int(frame_stack)
         # flat (demo, t) index with front padding (every t is a sample)
@@ -164,6 +168,12 @@ class BCDataset:
             [(d, t) for d in range(store.n_demos) for t in range(len(store.images[d]))],
             dtype=np.int64,
         )
+        self._native = None
+        if use_native and not store.lazy and store.images and store.images[0].dtype == np.uint8:
+            from .. import native
+
+            native.load()
+            self._native = native
 
     def __len__(self) -> int:
         return len(self._index)
@@ -184,7 +194,22 @@ class BCDataset:
         obs = np.empty((n, s, *img0.shape[1:]), dtype=img0.dtype)
         gaze = np.empty((n, s, st.gazes[0].shape[-1]), dtype=np.float32)
         acts = np.empty((n, st.actions[0].shape[-1]), dtype=np.float32)
-        for i, (d, t) in enumerate(self._index[np.asarray(idxs)]):
+        pairs = self._index[np.asarray(idxs)]
+        demo_idx = np.ascontiguousarray(pairs[:, 0])
+        t_idx = np.ascontiguousarray(pairs[:, 1])
+
+        if self._native is not None:
+            row = int(np.prod(img0.shape[1:]))
+            self._native.gather_windows_u8(st.flat_images, st.offsets, st.lengths, row,
+                                           demo_idx, t_idx, s, obs)
+            self._native.gather_windows_f32(st.flat_gazes, st.offsets, st.lengths,
+                                            st.flat_gazes.shape[-1], demo_idx, t_idx, s, gaze)
+            self._native.gather_rows_f32(st.flat_actions, st.offsets, st.lengths,
+                                         st.flat_actions.shape[-1], demo_idx, t_idx, acts)
+            return {"obs_seq": obs, "gaze_seq": gaze, "actions": acts}
+
+        for i in range(n):
+            d, t = demo_idx[i], t_idx[i]
             win = self._window(d, t)
             obs[i] = st.images[d][win]
             gaze[i] = st.gazes[d][win]

@@ -27,6 +27,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import re
+import xml.etree.ElementTree as ET
 from dataclasses import field
 
 import numpy as np
@@ -246,6 +249,34 @@ def _pad(a: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([a, reps], axis=0)
 
 
+_PARKED_LINE = re.compile(r"'location':\(([-0-9.e+]+), ([-0-9.e+]+),[^)]*\), 'rotation':\([^,]+, ([-0-9.e+]+),")
+_PARKED_TOWN = re.compile(r"^(\w+) = \[")
+
+
+def load_parked_tables(path) -> dict[str, np.ndarray]:
+    """Parked-vehicle tables as {town: [K, 3] (x, y, yaw_rad)} arrays:
+    either the vendored compiled .npz or a parse of the reference's
+    coordinate literals (leaderboard utils/parked_vehicles.py: per-town
+    lists of {'location', 'rotation', 'mesh'} slots)."""
+    if str(path).endswith(".npz"):
+        from ..data.vendored import load_parked_npz
+
+        return load_parked_npz(path)
+    towns: dict[str, list] = {}
+    cur = None
+    with open(path) as f:
+        for line in f:
+            m = _PARKED_TOWN.match(line)
+            if m:
+                cur = towns.setdefault(m.group(1), [])
+                continue
+            m = _PARKED_LINE.search(line)
+            if m and cur is not None:
+                x, y, yaw = float(m.group(1)), float(m.group(2)), float(m.group(3))
+                cur.append((x, y, math.radians(yaw)))
+    return {t: np.asarray(v, np.float32) for t, v in towns.items() if v}
+
+
 def select_parked_near_route(parked: np.ndarray, xy: np.ndarray, dirs: np.ndarray,
                              max_slots: int, lane_width: float = C.LANE_WIDTH) -> np.ndarray:
     """Parked slots within sight of the route but outside the driving lanes
@@ -261,6 +292,68 @@ def select_parked_near_route(parked: np.ndarray, xy: np.ndarray, dirs: np.ndarra
     sel = parked[keep]
     order = np.argsort(dist[keep])
     return sel[order[:max_slots]]
+
+
+def parse_routes_xml(path, route_ids=None) -> dict[int, dict]:
+    """Parse the reference's bench2drive220.xml -> {route_id: raw route}."""
+    root = ET.parse(path).getroot()
+    out = {}
+    for r in root.iter("route"):
+        rid = int(r.get("id"))
+        if route_ids is not None and rid not in route_ids:
+            continue
+        wps = np.array(
+            [[float(p.get("x")), float(p.get("y"))] for p in r.find("waypoints").findall("position")],
+            dtype=np.float32,
+        )
+        scenarios = []
+        for s in r.find("scenarios").findall("scenario"):
+            rec = {"type": s.get("type")}
+            for child in s:
+                if child.tag == "trigger_point":
+                    rec["trigger"] = (float(child.get("x")), float(child.get("y")), float(child.get("yaw")))
+                elif "value" in child.attrib:
+                    rec[child.tag] = _maybe_float(child.get("value"))
+                elif "from" in child.attrib:
+                    rec[child.tag] = (float(child.get("from")), float(child.get("to")))
+                elif "x" in child.attrib:
+                    rec[child.tag] = (float(child.get("x")), float(child.get("y")))
+            scenarios.append(rec)
+        weather = [0.0, 0.0, 0.0, 90.0]
+        weather_keys = []
+        wnode = r.find("weathers")
+        if wnode is not None and len(wnode):
+            for w in wnode:
+                weather_keys.append([
+                    float(w.get("route_percentage", 0)),
+                    float(w.get("cloudiness", 0)), float(w.get("precipitation", 0)),
+                    float(w.get("fog_density", 0)), float(w.get("sun_altitude_angle", 90)),
+                    float(w.get("wetness", 0)),
+                ])
+            w0 = weather_keys[0]
+            weather = [w0[1], w0[2], w0[3], w0[4]]
+        out[rid] = {"id": rid, "town": r.get("town"), "waypoints": wps,
+                    "scenarios": scenarios, "weather": weather,
+                    "weather_keys": weather_keys}
+    return out
+
+
+def _maybe_float(v: str):
+    try:
+        return float(v)
+    except ValueError:
+        return v
+
+
+def parse_routes(path, route_ids=None) -> dict[int, dict]:
+    """Route-table dispatch on the file name: the compiled routes220.json.gz
+    or the reference's bench2drive220.xml, the same raw-route schema either
+    way."""
+    if str(path).endswith(".json.gz"):
+        from ..data.vendored import load_routes_json
+
+        return load_routes_json(path, route_ids)
+    return parse_routes_xml(path, route_ids)
 
 
 def _project_s(route_xy: np.ndarray, p: np.ndarray) -> float:
@@ -1013,18 +1106,28 @@ def to_torch(spec: WorldSpec, device="cuda") -> WorldSpec:
 
 
 def load_benchmark_specs(route_ids, junction_traffic: bool | None = None,
-                         routes_file=None) -> WorldSpec:
+                         routes_file=None, parked_tables_path="auto") -> WorldSpec:
     """Stacked WorldSpec of the benchmark routes ``route_ids`` from
-    ``routes_file`` (a compiled route table; default the vendored
-    routes220.json.gz), with the vendored per-town parked-vehicle tables
-    (the JAX package's ``load_benchmark_specs`` on its default paths)."""
-    from ..data.vendored import load_parked_npz, load_routes_json, parked_tables_path, routes_path
+    ``routes_file``: the compiled routes220.json.gz (the default, vendored)
+    or the reference's bench2drive220.xml. ``parked_tables_path`` is a
+    parked-vehicle table (.npz, or the reference's parked_vehicles.py
+    literals), None for none, or "auto": the vendored .npz, else
+    ../leaderboard/utils/parked_vehicles.py beside the route file (the JAX
+    package's ``load_benchmark_specs``)."""
+    from ..data.vendored import parked_tables_path as vendored_parked, routes_path
 
     if not route_ids:
         raise ValueError("load_benchmark_specs: route_ids must name at least "
                          "one route (e.g. [3100])")
-    routes = load_routes_json(routes_file or routes_path(), list(route_ids))
-    tables = load_parked_npz(parked_tables_path())
+    routes_file = str(routes_file or routes_path())
+    routes = parse_routes(routes_file, list(route_ids))
+    if parked_tables_path == "auto":
+        cand = os.path.join(os.path.dirname(routes_file), "..", "leaderboard", "utils",
+                            "parked_vehicles.py")
+        found = vendored_parked()
+        parked_tables_path = (str(found) if found.exists()
+                              else cand if os.path.exists(cand) else None)
+    tables = load_parked_tables(parked_tables_path) if parked_tables_path else {}
     # pad every route to the batch's max scenario count so the specs stack
     # (bench2drive220 routes all carry exactly one -> K=1)
     k = max(1, max(len(routes[r]["scenarios"] or []) for r in route_ids))

@@ -1,9 +1,12 @@
-"""MLP heads (port of gabril_carla_tpu/models/heads.py, the BC part).
+"""MLP heads: pre-actor projection, actor, GRIL coordinate head, projector
+(port of gabril_carla_tpu/models/heads.py).
 
 Parity: linear_models.py:302-353 and the heads train/train_bc.py:73-86
 builds (pre_actor = Flatten + Linear(z_dim); actor = Linear-ReLU-Linear;
 GRIL's head = MLP with hidden_depth 1, built in train/bc.py).
-Parameters stay float32; each Linear runs in the module's ``dtype``.
+Parameters stay float32; each Linear runs in the module's ``dtype``. torch
+needs each layer's input width, which flax infers: ``mlp_head`` and
+``Projector`` take it first.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ class MLP(nn.Module):
             if i < len(self.layers) - 1:
                 x = F.relu(x)
         return x
+
+
+def mlp_head(in_dim: int, hidden_dim: int | None, output_dim: int, hidden_depth: int,
+             dtype=torch.float32) -> MLP:
+    """An MLP equivalent to linear_models.mlp, on ``in_dim`` inputs."""
+    return MLP(in_dim, output_dim, hidden_dim=hidden_dim, hidden_depth=hidden_depth, dtype=dtype)
 
 
 class PreActor(nn.Module):
@@ -63,3 +72,15 @@ class Actor(nn.Module):
     def forward(self, h):
         h = F.relu(dense(h, self.fc1, self.dtype))
         return dense(h, self.fc2, self.dtype)
+
+
+class Projector(nn.Module):
+    """General projection MLP (linear_models.py:343-353)."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int = 256, hidden_depth: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.mlp = MLP(in_dim, out_dim, hidden_dim=hidden_dim, hidden_depth=hidden_depth, dtype=dtype)
+
+    def forward(self, h):
+        return self.mlp(h)

@@ -109,6 +109,21 @@ def env_draws(keys, steps: int) -> np.ndarray:
     for t in range(steps):
         pair = split(rng)
         rng, subs[t] = pair[:, 0], pair[:, 1]
-    scen_amb = split(subs)  # [steps, B, 2, 2]
+    return _step_key_draws(subs)
+
+
+def tick_draws(rng) -> tuple[np.ndarray, np.ndarray]:
+    """One tick of ``env_draws``, for a loop whose length is not known in
+    advance: the worlds' rngs [B, 2] -> (their next rngs, this tick's draws
+    [B, 4]). Starting from the reset keys, the n-th call's draws are
+    ``env_draws(keys, n)[n - 1]``."""
+    pair = split(np.asarray(rng, np.uint32).reshape(-1, 2))
+    return pair[:, 0], _step_key_draws(pair[:, 1])
+
+
+def _step_key_draws(subs: np.ndarray) -> np.ndarray:
+    """Step keys [..., 2] -> their four uniforms [..., 4]: the scenario and
+    ambient keys, each split into two leaves that draw one uniform."""
+    scen_amb = split(subs)  # [..., 2, 2]
     leaves = np.concatenate([split(scen_amb[..., 0, :]), split(scen_amb[..., 1, :])], axis=-2)
     return uniform(leaves)

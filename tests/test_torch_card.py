@@ -21,7 +21,10 @@ within chip_smoke.EXPERT_TOL of the CPU with equal brakes, the VQ-VAE as
 chip_smoke.vqvae_agrees says, and a resumed Oreo run bitwise equal to the
 whole one (chip_smoke.run_resume_check), collection launching the kernel
 once a tick; at world size 1 on NCCL, the all-reduced step bitwise the
-plain one and the sharded eval bitwise rollout_routes without a mesh.
+plain one and the sharded eval bitwise rollout_routes without a mesh; the
+human loop's core launching the kernel once a tick and replayed bitwise
+through collect; the native gather bitwise the numpy loop on the card
+machine's host.
 """
 
 import itertools
@@ -277,3 +280,34 @@ def test_sharded_eval_equals_unsharded(nccl_mesh):
     out = sharded_eval_check(nccl_mesh, make_bc_policy_fn(models, cfg), cfg, params,
                              load_benchmark_specs(seen_routes()[:3]), 12)
     assert out["bitwise"] and out["launches"] == 13
+
+
+def test_human_core_replays_through_collect_on_card(cuda, tmp_path):
+    """HumanLoop's core on the card (route 3100, seed 200, 40 scripted
+    ticks): K1 once a tick; collect replaying the recorded actions with the
+    seed's draws gives the frames bitwise and the same stats.json record
+    (chip_smoke.human_drive, human_replay)."""
+    from chip_smoke import HUMAN_KEYS, human_drive, human_replay
+
+    loop, launches, _, _ = human_drive(cuda, tmp_path, HUMAN_KEYS[:40])
+    assert launches == 40
+    same_frames, same_record, rec = human_replay(loop, loop.save())
+    assert same_frames and same_record, rec
+
+
+def test_native_gather_on_the_card_host(cuda):
+    """On the card machine's host: the native gather bitwise the numpy
+    loop at the episode edges and on random batches of 500 at 180x320x3
+    (chip_smoke.gathers_agree), and a gathered batch copied to the card
+    unchanged."""
+    import numpy as np
+
+    from chip_smoke import gathers_agree
+    from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
+
+    store = synthetic_episodes(n_demos=4, steps=150, seed=1).finalize()
+    same, _, _ = gathers_agree(store, 500, 2)
+    assert same
+    batch = BCDataset(store, 2).sample(np.arange(500))
+    for v in batch.values():
+        assert torch.equal(torch.from_numpy(v).to(cuda).cpu(), torch.from_numpy(v))

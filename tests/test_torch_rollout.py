@@ -137,8 +137,10 @@ def test_port_runs_without_jax():
     and dryrun included), a 3-tick CPU rollout runs, alone and on a
     one-rank gloo mesh, one CPU train step (Reg with GMD), one gaze-predictor
     step, a 2-tick ViSaRL rollout on analytic gaze, an xosc storyboard's
-    compile and a gaze-statistics transform; no module of the JAX package
-    gets loaded."""
+    compile and a gaze-statistics transform, a batch through the native
+    gather, a HumanLoop tick and save, a profile_trace window, visualize's
+    panels and the route-table dispatch; no module of the JAX package gets
+    loaded, and not its native library."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
@@ -207,6 +209,27 @@ def test_port_runs_without_jax():
         from gabril_carla_tpu_torch.env.xosc import load_xosc
         assert build_world_spec(load_xosc(xosc_example("CyclistCrossing.xosc"))).route_len > 50
         assert humanize_gaze_coords(torch.rand(20, 10).numpy()).shape == (20, 10)
+        import numpy as np
+        from gabril_carla_tpu_torch import native
+        from gabril_carla_tpu_torch.cli.visualize import panels
+        from gabril_carla_tpu_torch.data.vendored import routes_path
+        from gabril_carla_tpu_torch.env.world import parse_routes
+        from gabril_carla_tpu_torch.eval.human import HumanLoop
+        from gabril_carla_tpu_torch.utils.profiling import profile_trace
+        ds = BCDataset(synthetic_episodes(n_demos=1, steps=3, img_hw=(24, 48)), frame_stack=2)
+        assert ds._native is native and ds.sample([0, 2])["obs_seq"].shape == (2, 2, 24, 48, 3)
+        with tempfile.TemporaryDirectory() as tmp:
+            loop = HumanLoop(load_benchmark_specs([3100]), tmp, gaze="dummy", device="cpu")
+            loop.start(200)
+            with profile_trace(tmp + "/trace"):
+                loop.tick(np.array([0.8, 0, 0, 0, 0, 0, 0], np.float32), loop.gaze.sample())
+            assert (loop.save() / "stats.json").exists()
+        heat, tri = panels(np.zeros((2, 180, 320, 3), np.uint8), np.full((2, 10), 0.5, np.float32),
+                           device="cpu")
+        assert heat.shape == (2, 180, 320) and tri.shape == (2, 180, 960, 3)
+        assert list(parse_routes(routes_path(), [3100])) == [3100]
+        maps = open("/proc/self/maps").read()
+        assert "libgather_" in maps and "gabril_carla_tpu/native/" not in maps
         bad = [m for m in sys.modules if m == "gabril_carla_tpu" or m.startswith("gabril_carla_tpu.")]
         assert not bad, bad
         print("ok")
