@@ -4,7 +4,8 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit;
-  2. build: nvcc compiles csrc/render.cu for sm_90a (registers, shared memory);
+  2. build: nvcc compiles csrc/render.cu and csrc/threefry.cu for sm_90a, one
+     process a source started together (registers, shared memory);
   3. kernel vs plain: the render kernel against its plain PyTorch version on
      the same operands, on the 20 real routes at reset and after 40 ticks
      (there under all four (far_decimate, lower_window) combinations), a
@@ -13,7 +14,7 @@ Phases, each fatal on failure:
      near-exact: in every frame at most FLIP_PX pixels off by more than
      1e-5 (near ties of the argmin, which nvcc's FMA contraction can flip);
   4. main path: make_rollout_fn on the 20 real routes tiled to 256 worlds,
-     full-width bf16 policy from a seeded generator, 100 ticks (warm-up
+     full-width bf16 policy initialized from prng_key(0), 100 ticks (warm-up
      included), timed after a warm-up run; the kernel must launch exactly
      ticks + 1 times in it; scores must be finite;
   5. the kernel at the main path's batch (its final state): held against
@@ -134,11 +135,22 @@ Phases, each fatal on failure:
      the recorded frames bitwise and the same record, K1 matches its plain
      version at the final state; then visualize.panels on the card against
      the CPU on one of phase 14's episodes (heat within VIZ_TOL, uint8
-     panels within one level).
+     panels within one level);
+ 22. JAX's training draws on the card (csrc/threefry.cu): the threefry
+     kernel at one IGMD step's draws at bench_train.py's batch of 2000
+     (36.0 M uniforms), Oreo's [2000, 512] mask and counters across 2**32,
+     bitwise its plain version on the card, slices bitwise numpy's threefry;
+     its time (median of THREEFRY_RUNS runs, CUDA events) beside its bound,
+     the plain version's and torch.rand's of the same shapes; its launches
+     in one BC step of each dropout method (LAUNCHES_PER_STEP); IGMD_STEPS
+     BC steps at batch 2000 with IGMD (2 launches a step) and a full-width
+     IGMD Trainer epoch; card Trainers against CPU Trainers of one seed at
+     the CPU tests' widths for GMD, IGMD and Oreo (every step's draws
+     bitwise, the loss within LOSS_RTOL).
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
-the pipeline's, the protocol's, the tools', phase 19's, 20's and 21's
-numbers, the card line, and last
+the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's and
+22's numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -444,13 +456,15 @@ def card_vs_cpu(gaze: str, dropout: str):
     from gabril_carla_tpu_torch.train.bc import (build_bc_models, init_bc_params, loss_and_grads,
                                                  step_draws)
 
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
     cfg = narrow_cfg(gaze, dropout)
     cpu = build_bc_models(cfg, "cpu")
-    params = init_bc_params(cpu, cfg, torch.Generator().manual_seed(0))
+    params = init_bc_params(cpu, cfg, prng_key(0))
     store = synthetic_episodes(n_demos=1, steps=8, img_hw=(24, 48), max_points=3)
     batch = next(BCDataset(store, 2).iter_batches(4, np.random.default_rng(0)))
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    draws = step_draws(torch.Generator().manual_seed(1), cfg, 4, "cpu")
+    draws = step_draws(prng_key(1), cfg, 4, "cpu")
     to_card = lambda d: {k: [t.cuda() for t in v] if k == "igmd" else v.cuda() for k, v in d.items()}
     _, m_cpu, g_cpu = loss_and_grads(cpu, cfg, params, batch, draws)
     _, m_card, g_card = loss_and_grads(build_bc_models(cfg, "cuda"), cfg,
@@ -465,7 +479,7 @@ def card_vs_cpu(gaze: str, dropout: str):
             max(gap(g_card[k].cpu(), g_cpu[k]) for k in g_cpu))
 
 
-def stage_split(models, cfg, state, batch, gen, reps=3) -> dict:
+def stage_split(models, cfg, state, batch, key, reps=3) -> dict:
     """Wall ms of the step's stages, each synchronised: heat prep, forward
     and loss (without the heat prep it contains), backward, optimizer."""
     from gabril_carla_tpu_torch.train.bc import bc_loss_fn
@@ -483,7 +497,7 @@ def stage_split(models, cfg, state, batch, gen, reps=3) -> dict:
             batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
             grayscale=cfg.model["grayscale"]))
         live = {k: v.detach().requires_grad_() for k, v in state.params.items()}
-        (loss, _), t_fwd = timed(lambda: bc_loss_fn(live, models, cfg, batch, gen))
+        (loss, _), t_fwd = timed(lambda: bc_loss_fn(live, models, cfg, batch, key))
         grads, t_bwd = timed(lambda: torch.autograd.grad(loss, list(live.values())))
         _, t_opt = timed(lambda: state.apply_gradients(dict(zip(live, grads))))
         for k, t in zip(wall, (t_heat, t_fwd - t_heat, t_bwd, t_opt)):
@@ -497,13 +511,14 @@ def train_phase(card: str) -> dict:
 
     from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step
     from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     cfg = bench_train_cfg()
     tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-    models, state0 = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+    models, state0 = init_bc_state(cfg, prng_key(0), tx)
     step = make_bc_train_step(models, cfg)
     batch = bench_batch(cfg, TRAIN_BATCH, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = prng_key(1)  # Reg draws nothing; the step takes its key all the same
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = step(state0, batch, gen)  # warm-up
@@ -574,6 +589,7 @@ def methods_phase():
     from gabril_carla_tpu_torch.train.bc import (DROPOUT_METHODS, GAZE_METHODS, init_bc_state,
                                                  make_bc_train_step)
     from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     worst = [0.0, 0.0]
     for gaze in GAZE_METHODS:
@@ -592,9 +608,8 @@ def methods_phase():
             cfg = bench_train_cfg(16)
             cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
             tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-            models, state = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
-            new, metrics = make_bc_train_step(models, cfg)(
-                state, bench_batch(cfg, 16, "cuda"), torch.Generator(device="cuda").manual_seed(1))
+            models, state = init_bc_state(cfg, prng_key(0), tx)
+            new, metrics = make_bc_train_step(models, cfg)(state, bench_batch(cfg, 16, "cuda"), prng_key(1))
             vals = [float(v) for v in metrics.values()]
             if not (np.isfinite(vals).all() and all(bool(torch.isfinite(v).all()) for v in new.params.values())):
                 raise SystemExit(f"chip_smoke: the bf16 step of {gaze}/{dropout} is not finite")
@@ -656,12 +671,13 @@ def gaze_phase(card: str) -> dict:
 
     from gabril_carla_tpu_torch.train.gaze_predictor import init_gaze_state, make_gaze_train_step
     from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     out = {"card": card}
     for arch in ("autoencoder", "unet"):
         cfg = gaze_cfg(arch)
         tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-        (model, hm), state0 = init_gaze_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+        (model, hm), state0 = init_gaze_state(cfg, prng_key(0), tx)
         step = make_gaze_train_step(model, hm, cfg)
         batch = bench_batch(cfg, GAZE_BATCH, "cuda")
         torch.cuda.synchronize()
@@ -713,6 +729,7 @@ def heat_cases(dev):
     from gabril_carla_tpu_torch.train.gaze_predictor import (build_gaze_models, init_gaze_params,
                                                              make_gaze_predictor_apply)
     from gabril_carla_tpu_torch.utils.config import default_bc_config
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     cases = {}
     for name, gaze, dropout in (("mask_predictor", "Mask", "None"), ("gmd_analytic", "None", "GMD"),
@@ -721,13 +738,13 @@ def heat_cases(dev):
         cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
         cfg["training"]["compute_dtype"] = "bfloat16"
         models = build_bc_models(cfg, dev)
-        params = init_bc_params(models, cfg, torch.Generator(device=dev).manual_seed(0))
+        params = init_bc_params(models, cfg, prng_key(0))
         params["actor.fc2.bias"][0] = THROTTLE_BIAS
         kw = {"gmd_analytic": dict(use_analytic_gaze=True),
               "confounded": dict(confounded=True)}.get(name, {})
         if name == "mask_predictor":
             gp, _ = build_gaze_models(gaze_cfg(), dev)
-            gp_params = init_gaze_params(gp, torch.Generator(device=dev).manual_seed(5))
+            gp_params = init_gaze_params(gp, gaze_cfg(), prng_key(5))
             params = {**params, "gaze_predictor": gp_params}
             kw = dict(gaze_predictor_apply=make_gaze_predictor_apply(gp))
         cases[name] = (cfg, models, params, kw)
@@ -915,9 +932,11 @@ def gaze_card_vs_cpu(arch) -> dict:
     from gabril_carla_tpu_torch.train.gaze_predictor import (build_gaze_models, gaze_loss_and_grads,
                                                              init_gaze_params)
 
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
     cfg = gaze_cfg(arch, 2, tiny=True)
     cpu, hm = build_gaze_models(cfg, "cpu")
-    params = init_gaze_params(cpu, torch.Generator().manual_seed(0))
+    params = init_gaze_params(cpu, cfg, prng_key(0))
     batch = bench_batch(cfg, 2, "cpu")
     card, hm_card = build_gaze_models(cfg, "cuda")
     p_card = {k: v.cuda() for k, v in params.items()}
@@ -1160,9 +1179,11 @@ def vqvae_card_vs_cpu() -> dict:
 
     from gabril_carla_tpu_torch.train import vqvae as V
 
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
     cfg = vq_cfg(2, tiny=True)
     cpu = V.build_vqvae_models(cfg, "cpu")
-    params = V.init_vqvae_params(cpu, torch.Generator().manual_seed(0))
+    params = V.init_vqvae_params(cpu, cfg, prng_key(0))
     batch = bench_batch(cfg, 2, "cpu")
     card = V.build_vqvae_models(cfg, "cuda")
     p_card = {k: v.cuda() for k, v in params.items()}
@@ -1189,7 +1210,7 @@ def vqvae_card_vs_cpu() -> dict:
     tie = (top2[:, 1] - top2[:, 0]).abs() <= VQ_TIE_RTOL * top2[:, 0].abs()
     off = i_cpu != i_card
 
-    draws = V.revive_draws(torch.Generator().manual_seed(3), x.shape[0] * 20 * 38, 16, 4)
+    draws = V.revive_draws(prng_key(3), x.shape[0] * 20 * 38, 16, 4, "cpu")
     sd = dict(params)
     sd["quantizer.codebook"] = sd["quantizer.codebook"].clone()
     sd["quantizer.codebook"][:6] = 5.0  # six codes no latent maps to
@@ -1217,10 +1238,11 @@ def vqvae_phase(card: str) -> dict:
 
     from gabril_carla_tpu_torch.train.optim import build_optimizer
     from gabril_carla_tpu_torch.train.vqvae import init_vqvae_state, make_vqvae_train_step
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     cfg = vq_cfg()
     tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-    model, state0 = init_vqvae_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx)
+    model, state0 = init_vqvae_state(cfg, prng_key(0), tx)
     step = make_vqvae_train_step(model, cfg)
     batch = bench_batch(cfg, VQ_BATCH, "cuda")
     torch.cuda.synchronize()
@@ -1786,11 +1808,12 @@ def allreduce_step_check(mesh, batch_size: int = DIST_BATCH) -> dict:
     from gabril_carla_tpu_torch.parallel.mesh import data_group, pmean
     from gabril_carla_tpu_torch.train.bc import init_bc_state, loss_and_grads, make_bc_train_step
     from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     cfg = bench_train_cfg(batch_size)
     cfg["gaze"]["method"] = "None"
     tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, 10)
-    models, state = init_bc_state(cfg, torch.Generator(device="cuda").manual_seed(0), tx, "cuda")
+    models, state = init_bc_state(cfg, prng_key(0), tx, "cuda")
     batch = bench_batch(cfg, batch_size, "cuda")
     group = data_group(mesh)
     plain, grouped = make_bc_train_step(models, cfg), make_bc_train_step(models, cfg, group)
@@ -2153,6 +2176,225 @@ def human_tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
     return out, {"human": launches, "profile_trace": profiled}, err
 
 
+# phase 22: JAX's random bits on the card (ops/threefry_kernel.py, csrc/threefry.cu)
+# Its integer work is bounded by instruction issue: the H100's 67 TFLOP/s
+# float32 peak (PEAK_F32_S) counts an FMA as 2 flops, so it is 128 lane
+# instructions an SM a clock, all that an SM's four schedulers issue. That
+# is an assumed ceiling, and one no threefry can reach: LOP3 and SHF issue
+# at 64 an SM a clock, and only the adds could move to the IMAD pipe. So it
+# can only make the bound shorter than the truth, never the kernel's share
+# larger than it is.
+PEAK_ISSUE_S = PEAK_F32_S / 2
+# the fewest instructions an element: 20 rounds of add, rotate and xor (60);
+# the second word's initial key add and 5 injections, their constants folded
+# (6); the first word's last injection (1; its others and its initial add
+# fuse into the next round's add, a 3-input IADD3); the words' xor, the shift
+# and the or of the exponent (3); the subtraction of 1.0 (1)
+THREEFRY_OPS = 71
+THREEFRY_RUNS, THREEFRY_REPS = 7, 10  # timing: the median of 7 runs of 10 draws each
+IGMD_STEPS = 10  # phase 22: timed BC steps at batch 2000 with IGMD
+LAUNCHES_PER_STEP = {"None": 0, "GMD": 1, "IGMD": 2, "Oreo": 1}  # train/bc.py step_draws
+
+
+def host_uniform(key, offset: int, m: int):
+    """numpy's uniforms (utils/prng.py) at flat counters offset .. offset + m."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.utils import prng
+
+    c = offset + np.arange(m, dtype=np.uint64)
+    a, b = prng.threefry2x32(key[0], key[1], (c >> np.uint64(32)).astype(np.uint32),
+                             (c & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return (((a ^ b) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+
+
+def median_ms(fn, runs=THREEFRY_RUNS, reps=THREEFRY_REPS) -> float:
+    """The median over ``runs`` of time_ms(fn, reps)."""
+    return sorted(time_ms(fn, reps) for _ in range(runs))[runs // 2]
+
+
+def threefry_phase(card: str, tmp) -> dict:
+    """Phase 22: the threefry kernel at bench_train.py's batch with IGMD."""
+    import numpy as np
+
+    from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
+    from gabril_carla_tpu_torch.models.encoder import igmd_hw
+    from gabril_carla_tpu_torch.ops import threefry_kernel as TK
+    from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step, step_draws
+    from gabril_carla_tpu_torch.train.loop import Trainer
+    from gabril_carla_tpu_torch.train.optim import build_optimizer
+    from gabril_carla_tpu_torch.utils import prng
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    cfg = bench_train_cfg()
+    cfg["dropout"]["method"] = "IGMD"
+    shapes = [(TRAIN_BATCH, 1, *hw) for hw in igmd_hw(cfg.data["img_height"], cfg.data["img_width"])]
+    n_all = sum(math.prod(sh) for sh in shapes)
+    # one step's two IGMD keys: the encoder's make_rng("dropout") keys of k_igmd
+    k_igmd = prng.split(prng.prng_key(1), 4)[2]
+    keys = [prng.flax_fold(k_igmd, i + 1) for i in range(2)]
+
+    # the kernel against its plain version on the card, bitwise; slices of it against numpy
+    equal, max_err, host_ok = True, 0.0, True
+    for k, sh in zip(keys, shapes):
+        n = math.prod(sh)
+        got = TK.uniform(k, sh, "cuda").reshape(-1)
+        plain = TK.random_floats_plain(k, n, "cuda")
+        equal &= bool(torch.equal(bits(got), bits(plain)))
+        max_err = max(max_err, float((got - plain).abs().max()))
+        for off in (0, n // 2, n - 4096):
+            host_ok &= bool(np.array_equal(got[off:off + 4096].cpu().numpy(), host_uniform(k, off, 4096)))
+    small_full = bool(np.array_equal(TK.uniform(keys[1], shapes[1], "cuda").cpu().numpy(),
+                                     prng.uniform(keys[1], shapes[1])))
+    oreo_shape, p = (TRAIN_BATCH, 512), 1.0 - 0.5
+    k_oreo = prng.split(prng.prng_key(1), 4)[3]
+    mask = TK.bernoulli(k_oreo, p, oreo_shape, "cuda")
+    equal &= bool(torch.equal(mask, TK.random_floats_plain(k_oreo, math.prod(oreo_shape), "cuda", p=p)
+                              .reshape(oreo_shape)))
+    host_ok &= bool(np.array_equal(mask.cpu().numpy(), prng.bernoulli(k_oreo, p, oreo_shape).astype(np.float32)))
+    hi = 2**32 - 2048  # counters across the high word
+    high = TK.random_floats(keys[0], 4096, "cuda", offset=hi)
+    equal &= bool(torch.equal(bits(high), bits(TK.random_floats_plain(keys[0], 4096, "cuda", offset=hi))))
+    host_ok &= bool(np.array_equal(high.cpu().numpy(), host_uniform(keys[0], hi, 4096)))
+    log(f"[threefry] kernel against its plain version on the card at one IGMD step's draws "
+        f"({' + '.join(str(list(sh)) for sh in shapes)} = {n_all / 1e6:.1f} M uniforms), Oreo's "
+        f"[{TRAIN_BATCH}, 512] mask and counters across 2**32: bitwise {equal} (max abs {max_err:g}); "
+        f"slices against numpy's threefry bitwise {host_ok}, the [{', '.join(map(str, shapes[1]))}] "
+        f"draw whole {small_full}")
+    if not (equal and host_ok and small_full):
+        raise SystemExit("chip_smoke: the threefry kernel disagrees with its plain version or numpy")
+
+    # its time beside its bound, the plain version's and torch.rand's
+    def draw(fn):
+        return lambda: [fn(k, sh) for k, sh in zip(keys, shapes)]
+
+    k_ms = median_ms(draw(lambda k, sh: TK.uniform(k, sh, "cuda")))
+    p_ms = median_ms(draw(lambda k, sh: TK.random_floats_plain(k, math.prod(sh), "cuda")), 3, 2)
+    rand_ms = median_ms(draw(lambda k, sh: torch.rand(sh, device="cuda")))
+    b_ops = n_all * THREEFRY_OPS / PEAK_ISSUE_S * 1e3
+    b_bytes = n_all * 4 / PEAK_BYTES_S * 1e3
+    b_ms, b_by = max((b_ops, "operations"), (b_bytes, "bytes"))
+    log(f"[threefry] one step's IGMD draws ({n_all / 1e6:.1f} M uniforms, 2 launches): kernel {k_ms:.4f} "
+        f"ms (median of {THREEFRY_RUNS} runs of {THREEFRY_REPS}); bound {b_ms:.4f} ms by {b_by} "
+        f"({THREEFRY_OPS} instructions an element at {PEAK_ISSUE_S / 1e12:.2f} T/s; bytes "
+        f"{b_bytes:.4f} ms), {100 * b_ms / k_ms:.1f}% of it; plain version {p_ms:.3f} ms; torch.rand "
+        f"of the same shapes {rand_ms:.4f} ms (other bits: context, not a yardstick); on {card}")
+
+    # launches a step for each dropout method (batch 16)
+    per_step = {}
+    for d in LAUNCHES_PER_STEP:
+        c16 = bench_train_cfg(16)
+        c16["dropout"]["method"] = d
+        tx = build_optimizer(c16.optimizer, c16.scheduler, c16.training, steps_per_epoch=100)
+        models, state = init_bc_state(c16, prng.prng_key(0), tx)
+        batch = bench_batch(c16, 16, "cuda")
+        TK.threefry_kernel.launches = 0
+        make_bc_train_step(models, c16)(state, batch, prng.prng_key(1))
+        per_step[d] = TK.threefry_kernel.launches
+    log(f"[threefry] launches in one BC step by dropout method: {per_step} (want {LAUNCHES_PER_STEP})")
+    if per_step != LAUNCHES_PER_STEP:
+        raise SystemExit("chip_smoke: the train step's threefry launches are not one a draw")
+
+    # the BC step at batch 2000 with IGMD, each step its own key
+    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
+    models, state = init_bc_state(cfg, prng.prng_key(0), tx)
+    step = make_bc_train_step(models, cfg)
+    batch = bench_batch(cfg, TRAIN_BATCH, "cuda")
+    step_keys = prng.split(prng.prng_key(2), IGMD_STEPS + 1)
+    state, _ = step(state, batch, step_keys[0])  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    TK.threefry_kernel.launches = 0
+    start.record()
+    for k in step_keys[1:]:
+        state, metrics = step(state, batch, k)
+    end.record()
+    torch.cuda.synchronize()
+    step_launches = TK.threefry_kernel.launches
+    step_ms = start.elapsed_time(end) / IGMD_STEPS
+    finite = all(math.isfinite(float(v)) for v in metrics.values())
+    log(f"[threefry] bench_train.py's step with IGMD (batch {TRAIN_BATCH}, Reg, bf16): {step_ms:.3f} ms a "
+        f"step over {IGMD_STEPS} steps, {TRAIN_BATCH / step_ms * 1e3:.1f} samples/s; the draws "
+        f"{100 * k_ms / step_ms:.2f}% of it; threefry launches {step_launches} (want {2 * IGMD_STEPS}); "
+        f"loss {float(metrics['loss']):.5f}")
+    if step_launches != 2 * IGMD_STEPS or not finite:
+        raise SystemExit("chip_smoke: the IGMD step did not launch the threefry kernel twice a step "
+                         "or gave non-finite metrics")
+
+    # the Trainer, the entry point: full width, IGMD, batch 64, device-resident
+    tcfg = bench_train_cfg(64)
+    tcfg["dropout"]["method"] = "IGMD"
+    tcfg["training"].update(epochs=1, device_data=True)
+    tcfg["logging"]["log_dir"] = str(tmp)
+    trainer = Trainer(tcfg, BCDataset(synthetic_episodes(n_demos=4, steps=64), 2), mode="bc")
+    TK.threefry_kernel.launches = 0
+    last = trainer.train()
+    trainer_launches = TK.threefry_kernel.launches
+    want = 2 * trainer.steps_per_epoch
+    log(f"[threefry] Trainer at full width with IGMD, 1 epoch of {trainer.steps_per_epoch} steps at batch "
+        f"64: threefry launches {trainer_launches} (want {want}), loss {last['loss']:.5f}")
+    if trainer_launches != want or not math.isfinite(last["loss"]):
+        raise SystemExit("chip_smoke: the Trainer's IGMD steps did not launch the threefry kernel twice a step")
+
+    # a card Trainer against a CPU Trainer from one seed at the CPU tests' widths: the draws
+    # each Trainer's steps drew from their keys, recorded as train/bc.py's step_draws returns them,
+    # bitwise between the devices and against the key chain of train/loop.py
+    import gabril_carla_tpu_torch.train.bc as bc_mod
+
+    def flat(dr):
+        return [t.detach().cpu() for name in sorted(dr) for t in (dr[name] if name == "igmd" else [dr[name]])]
+
+    drawn_by = {}
+
+    def recording(rng, *args, **kwargs):
+        out = step_draws(rng, *args, **kwargs)
+        if not isinstance(rng, dict):  # a dict passes drawn numbers on
+            drawn_by[dev].append(flat(out))
+        return out
+
+    gaps = {}
+    for d in ("GMD", "IGMD", "Oreo"):
+        losses, drawn_by = [], {}
+        for dev in ("cuda", "cpu"):
+            drawn_by[dev] = []
+            ncfg = narrow_cfg("None", d)
+            ncfg["training"].update(epochs=2, device_data=True, seed=3)
+            ncfg["logging"]["log_dir"] = str(tmp)
+            store = synthetic_episodes(n_demos=2, steps=6, img_hw=(24, 48), max_points=3, seed=3)
+            tr = Trainer(ncfg, BCDataset(store, 2), mode="bc", device=dev)
+            bc_mod.step_draws = recording
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    losses.append(tr.train()["loss"])
+            finally:
+                bc_mod.step_draws = step_draws
+        chain = []
+        epoch_key = prng.prng_key(3 + 1)  # the Trainer's step key chain (train/loop.py)
+        for _ in range(2):
+            epoch_key, sub = prng.split(epoch_key)
+            for _ in range(tr.steps_per_epoch):
+                sub, k = prng.split(sub)
+                chain.append(flat(step_draws(k, ncfg, 4, "cpu")))
+        n_steps = len(chain)
+        pairs = [(x, y) for seq in (drawn_by["cpu"], chain) for a, b in zip(drawn_by["cuda"], seq)
+                 for x, y in zip(a, b)]
+        draws_equal = (len(drawn_by["cuda"]) == len(drawn_by["cpu"]) == n_steps
+                       and all(torch.equal(bits(x), bits(y)) for x, y in pairs))
+        gaps[d] = {"loss_gap": abs(losses[0] - losses[1]) / abs(losses[1]), "draws_bitwise": draws_equal}
+    log(f"[threefry] card Trainer against CPU Trainer, training.seed 3, 24x48, 2 epochs of "
+        f"{tr.steps_per_epoch} steps: "
+        + ", ".join(f"{d} loss gap {g['loss_gap']:.3g} (bar {LOSS_RTOL:g}), the {n_steps} steps' draws "
+                    f"bitwise each other and the key chain {g['draws_bitwise']}" for d, g in gaps.items()))
+    if not all(g["draws_bitwise"] and g["loss_gap"] <= LOSS_RTOL for g in gaps.values()):
+        raise SystemExit("chip_smoke: a card Trainer disagrees with the CPU Trainer of its seed")
+    return {"elements": n_all, "ms": k_ms, "plain_ms": p_ms, "torch_rand_ms": rand_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes_ms": b_bytes, "max_abs_err": max_err,
+            "launches_per_step": per_step, "igmd_step_ms": step_ms, "igmd_step_launches": step_launches,
+            "trainer_launches": trainer_launches, "card_vs_cpu_trainer": gaps, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2164,9 +2406,11 @@ def main() -> int:
     from gabril_carla_tpu_torch.env.criteria import compute_score
     from gabril_carla_tpu_torch.env.world import load_benchmark_specs, spec_rows, to_torch
     from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
+    from gabril_carla_tpu_torch.ops import threefry_kernel as TK
     from gabril_carla_tpu_torch.ops.render_kernel import build, render_kernel
     from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
     from gabril_carla_tpu_torch.utils.config import default_bc_config
+    from gabril_carla_tpu_torch.utils.prng import prng_key
 
     dev = "cuda"
     torch.backends.cudnn.allow_tf32 = False
@@ -2177,21 +2421,26 @@ def main() -> int:
     card = card_line()
     log(f"[device] {kind}; {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: one nvcc a source, both started together
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    lib, build_log = build()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda b: b(), (build, TK.build)))
+    for lib, build_log in built:
+        log(f"[build] {lib.name} ({time.perf_counter() - t0:.1f} s for both)")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
     render_kernel.load()
+    TK.threefry_kernel.load()
 
     # the policy and the worlds of the main path
     cfg = default_bc_config()
     cfg["gaze"]["method"] = "None"
     cfg["training"]["compute_dtype"] = "bfloat16"
     models = build_bc_models(cfg, dev)
-    params = init_bc_params(models, cfg, torch.Generator(device=dev).manual_seed(0))
+    params = init_bc_params(models, cfg, prng_key(0))
     policy = make_bc_policy_fn(models, cfg)
     ids = seen_routes() + unseen_routes()
     base = load_benchmark_specs(ids)
@@ -2329,6 +2578,11 @@ def main() -> int:
         human, human_launches, human_err = human_tools_phase(card, episodes, tmp)
         max_err = max(max_err, human_err)
         log(f"[phases] 21 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 22. JAX's training draws on the card
+        t_phase = time.perf_counter()
+        threefry = threefry_phase(card, Path(tmp) / "threefry")
+        log(f"[phases] 22 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
@@ -2338,7 +2592,17 @@ def main() -> int:
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
         "launches_by_path": by_path, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}]}))
+        "bound_ms": b_ms, "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}, {
+        "name": "threefry", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/threefry.cu",
+        "replaces": "gabril_carla_tpu/train/bc.py:222",
+        "replaces_note": "no TPU kernel: jax.random's threefry, which XLA generated on the device",
+        "launches": threefry["trainer_launches"],
+        "launches_by_path": {"trainer IGMD": threefry["trainer_launches"],
+                             "bench_train step IGMD": threefry["igmd_step_launches"],
+                             **{f"one step {k}": v for k, v in threefry["launches_per_step"].items()}},
+        "max_abs_err": threefry["max_abs_err"], "ms": threefry["ms"], "plain_ms": threefry["plain_ms"],
+        "bound_ms": threefry["bound_ms"], "bound_by": threefry["bound_by"], "library_ms": None,
+        "torch_rand_ms": threefry["torch_rand_ms"], "elements": threefry["elements"]}]}))
     print(json.dumps({"train": train}))
     print(json.dumps({"gaze_train": gaze}))
     print(json.dumps({"heat_rollouts": heat}))
@@ -2350,6 +2614,7 @@ def main() -> int:
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"host_batches": host}))
     print(json.dumps({"human": human}))
+    print(json.dumps({"threefry": threefry}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

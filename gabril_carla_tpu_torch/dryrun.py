@@ -47,10 +47,11 @@ def entry(device="cuda"):
     """(fn, example_args): the BC policy's forward at full size (Reg, bf16)
     on ``device``, with a zero batch of 8 observations."""
     from .train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
+    from .utils.prng import prng_key
 
     cfg = _full_cfg()
     models = build_bc_models(cfg, device)
-    params = init_bc_params(models, cfg, torch.Generator(device=device).manual_seed(0))
+    params = init_bc_params(models, cfg, prng_key(0))
     obs = torch.zeros((8, cfg.data["img_height"], cfg.data["img_width"], cfg.data["frame_stack"]),
                       device=device)
     return make_bc_policy_fn(models, cfg), (params, obs)
@@ -77,9 +78,6 @@ def _legs(n: int, device) -> dict:
     from .train.optim import build_optimizer
     from .utils.prng import prng_key
 
-    def gen(seed):
-        return torch.Generator(device=device).manual_seed(seed)
-
     def on_device(batch):
         return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -98,12 +96,12 @@ def _legs(n: int, device) -> dict:
     cfg["gaze"].update(max_points=3, mask_sigma=4.0)
     cfg["scheduler"]["type"] = "none"
     tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=2)
-    models, state = init_bc_state(cfg, gen(0), tx, device)
+    models, state = init_bc_state(cfg, prng_key(0), tx, device)
     broadcast_state(state, mesh)
-    step = make_bc_train_step(models, cfg, group)
+    step = make_bc_train_step(models, cfg, group, global_rows=True)
     store = synthetic_episodes(n_demos=1, steps=max(16, 2 * n), img_hw=(24, 48), max_points=3)
     batch = shard_batch(BCDataset(store, frame_stack=2).sample(np.arange(2 * n)), mesh)
-    state, metrics = step(state, on_device(batch), gen(1))
+    state, metrics = step(state, on_device(batch), prng_key(1))
     out["step_loss"] = float(metrics["loss"])
     out["step_replicated"] = _replicated(state.params, group)
     out["step_s"] = time.perf_counter() - t0
@@ -113,7 +111,8 @@ def _legs(n: int, device) -> dict:
     t0 = time.perf_counter()
     store2 = synthetic_episodes(n_demos=2 * n, steps=12, img_hw=(24, 48), max_points=3)
     sdd = ShardedDeviceData(store2, frame_stack=2, mesh=mesh, grayscale_store=True, device=device)
-    epoch_fn = make_sharded_epoch_fn(sdd, step, steps_per_epoch=2, local_bs=2)
+    epoch_fn = make_sharded_epoch_fn(sdd, make_bc_train_step(models, cfg, group), steps_per_epoch=2,
+                                     local_bs=2)
     perm = sdd.epoch_perm(np.random.default_rng(0), steps_per_epoch=2, local_bs=2)
     state, em = epoch_fn(state, perm, prng_key(2))
     out["epoch_loss"] = float(em["loss"])
@@ -127,7 +126,7 @@ def _legs(n: int, device) -> dict:
     ecfg = _toy(_full_cfg())
     ecfg["gaze"]["method"] = "None"
     emodels = build_bc_models(ecfg, device)
-    eparams = init_bc_params(emodels, ecfg, gen(3))
+    eparams = init_bc_params(emodels, ecfg, prng_key(3))
     roll = make_rollout_fn(make_bc_policy_fn(emodels, ecfg), ecfg, steps=3)
     wps = np.stack([np.arange(0.0, 120, 2.0), np.zeros(60)], 1).astype(np.float32)
     specs = stack_specs([build_world_spec({"id": i, "town": "T", "waypoints": wps + i,
@@ -145,16 +144,16 @@ def _legs(n: int, device) -> dict:
     fcfg["data"]["batch_size"] = 2 * n
     fcfg["scheduler"]["type"] = "none"
     ftx = build_optimizer(fcfg.optimizer, fcfg.scheduler, fcfg.training, steps_per_epoch=2)
-    fmodels, fstate = init_bc_state(fcfg, gen(5), ftx, device)
+    fmodels, fstate = init_bc_state(fcfg, prng_key(5), ftx, device)
     broadcast_state(fstate, mesh)
-    fstep = make_bc_train_step(fmodels, fcfg, group)
+    fstep = make_bc_train_step(fmodels, fcfg, group, global_rows=True)
     fstore = synthetic_episodes(n_demos=1, steps=max(16, 2 * n),
                                 img_hw=(fcfg.data["img_height"], fcfg.data["img_width"]),
                                 max_points=fcfg.gaze["max_points"])
     fbatch = on_device(shard_batch(BCDataset(fstore, frame_stack=fcfg.data["frame_stack"]).sample(
         np.arange(2 * n)), mesh))
     for i in range(2):
-        fstate, fmetrics = fstep(fstate, fbatch, gen(6 + i))
+        fstate, fmetrics = fstep(fstate, fbatch, prng_key(6 + i))
     out["full_loss"] = float(fmetrics["loss"])
     out["full_replicated"] = _replicated(fstate.params, group)
     out["full_s"] = time.perf_counter() - t0

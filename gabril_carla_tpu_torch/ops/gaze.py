@@ -28,15 +28,14 @@ def gaze_mask_from_latent(z: torch.Tensor, beta: float, target_hw: tuple[int, in
 
 
 def gmd_dropout(z: torch.Tensor, g: torch.Tensor, test_mode: bool = False,
-                uniforms: torch.Tensor | None = None, generator: torch.Generator | None = None,
-                dropout_prob: float = 0.7) -> torch.Tensor:
+                uniforms: torch.Tensor | None = None, dropout_prob: float = 0.7) -> torch.Tensor:
     """Gaze-modulated dropout (gaze_utils.apply_gmd_dropout).
 
     Keep-probability map K = p * minmax(resize(mean_s(g))) + (1 - p), with the
     min and max over the whole batch tensor (the reference's
     ``K.max() - K.min()``). Test mode multiplies z by K; train mode by the
-    mask ``a < K`` for uniforms ``a [B, 1, h, w]``, given outright or drawn
-    from ``generator``.
+    mask ``a < K`` for the uniforms ``a [B, 1, h, w]`` of JAX's key
+    (train/bc.py step_draws draws them: ops/threefry_kernel.py).
 
     z [B, C, h, w]; g [B, H, W] or [B, S, H, W] (stack on axis 1).
     """
@@ -49,9 +48,7 @@ def gmd_dropout(z: torch.Tensor, g: torch.Tensor, test_mode: bool = False,
     if test_mode:
         return z * k
     if uniforms is None:
-        if generator is None:
-            raise ValueError("gmd_dropout in train mode needs uniforms or a generator")
-        uniforms = torch.rand((b, 1, h, w), generator=generator, device=z.device)
+        raise ValueError("gmd_dropout in train mode needs its uniforms")
     if uniforms.shape != (b, 1, h, w):
         raise ValueError(f"gmd_dropout uniforms must be {(b, 1, h, w)}, got {tuple(uniforms.shape)}")
     return z * (uniforms < k).to(z.dtype)

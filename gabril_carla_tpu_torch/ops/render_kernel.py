@@ -3,7 +3,8 @@
 ``csrc/render.cu`` is the CUDA port of the TPU kernel
 gabril_carla_tpu/ops/pallas_raster.py: _render_kernel. It is compiled with
 nvcc for sm_90a into a shared library with a plain C interface at first use
-(``build``), into ``gabril_carla_tpu_torch/_build/``, and loaded with ctypes.
+(``build``, ops/nvcc.py), into ``gabril_carla_tpu_torch/_build/``, and loaded
+with ctypes.
 
 ``render_from_operands`` is the one entry: for CUDA tensors it launches the
 kernel (or raises), for CPU tensors it runs ``render_from_operands_plain``,
@@ -19,16 +20,13 @@ variants ``far_decimate`` and ``lower_window`` as keyword arguments.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..env.constants import LANE_WIDTH
+from . import nvcc
 
 H, W = 180, 320
 N_CAM = 18
@@ -37,11 +35,7 @@ MAX_ROWS = 160  # ROUTE_VIEW route rows + 32 scenario-flow rows
 MAX_BOXES = 32
 ROUTE_VIEW = 128  # route points visible (1 m spacing; camera depth caps at 120 m)
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "render.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "render.cu"
 
 # camera and shading constants of raster.py / pallas_raster.py (csrc/render.cu
 # holds the same values)
@@ -66,22 +60,9 @@ LOWER_START = (12, 44)
 
 
 def build() -> tuple[Path, str]:
-    """Compile csrc/render.cu with nvcc unless a library built from the same
-    source and flags exists. Returns (library path, compiler output; empty
-    when nothing was compiled)."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"librender_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    """Compile csrc/render.cu (ops/nvcc.py build). Returns (library path,
+    compiler output; empty when nothing was compiled)."""
+    return nvcc.build(SOURCE)
 
 
 class RenderKernel:

@@ -10,13 +10,20 @@ NCHW throughout: frames are [B, S*C', H, W], heat [B, S, H, W], latents
 [B, D, h, w]. Parameters are a flat dict ``{"encoder.down1.weight": ...}``
 (``BCModels``' state dict), applied with ``torch.func.functional_call``.
 
-Randomness. A train step takes ``rng``: a ``torch.Generator``, or the draws
-themselves as a dict (the parity tests replay JAX's):
-  * ``"igmd"``: two uniform tensors [B, 1, H/2, W/2] and [B, 1, H/4, W/4];
+Randomness. A train step takes ``rng``: a threefry key (utils/prng.py,
+two uint32 words), from which it draws what the JAX package's step draws
+from the same key (bc.py:222: ``split(key, 4)`` gives the GMD, IGMD and
+Oreo keys), or the draws themselves as a dict:
+  * ``"igmd"``: two uniform tensors [B, 1, H/2, W/2] and [B, 1, H/4, W/4],
+    from the encoder's two ``make_rng("dropout")`` keys of the IGMD key;
   * ``"gmd"``: uniforms [B, 1, h, w] on the latent grid;
-  * ``"oreo"``: the code mask [m*B, num_embeddings] of 0/1 floats.
-All of them are drawn before the forward, in that order, so a
-rematerialized encoder replays the same masks.
+  * ``"oreo"``: the code mask [m*B, num_embeddings] of 0/1 floats, a
+    Bernoulli of 1 - oreo_prob.
+A key's draws run on the batch's device (ops/threefry_kernel.py: the
+kernel on the card). NCHW [B, 1, h, w] and JAX's NHWC [B, h, w, 1] share one
+flat order, so the draws are JAX's element for element. All of them are
+drawn before the forward, so a rematerialized encoder replays the same
+masks.
 
 Oreo with a regularizer (Teacher, Reg, Contrastive, GRIL) and
 ``oreo_num_mask`` m > 1: the JAX package fails there on a shape mismatch
@@ -27,19 +34,22 @@ this is the JAX package's loss.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..convert import bc_layout, flax_init, orthogonal_init, params_from_flax
 from ..models.encoder import Encoder, igmd_hw, latent_hw
 from ..models.heads import MLP, Actor, PreActor
 from ..models.vq import VectorQuantizer
+from ..ops import threefry_kernel
 from ..ops.gaze import gaze_mask_from_latent, gmd_dropout
 from ..ops.heatmap import GazeHeatmapper
 from ..parallel.mesh import pmean
+from ..utils.prng import flax_fold, split
 from .optim import TrainState, masked
 
 GAZE_METHODS = ("None", "Teacher", "Reg", "Mask", "Contrastive", "ViSaRL", "AGIL", "GRIL")
@@ -138,32 +148,30 @@ def build_bc_models(cfg, device="cuda") -> BCModels:
     return BCModels(cfg).to(device)
 
 
-def init_bc_params(models: BCModels, cfg, generator: torch.Generator) -> dict:
-    """Seeded init from ``generator``, in place, as flax's initializers:
-    orthogonal (relu gain for convs, gain 1 for dense), zero biases, Oreo's
-    raw codebook U(0, 2/K). Returns the state dict."""
-    with torch.no_grad():
-        for mod in models.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                gain = math.sqrt(2.0) if isinstance(mod, nn.Conv2d) else 1.0
-                w = torch.empty(mod.weight.shape, dtype=torch.float32, device=generator.device)
-                nn.init.orthogonal_(w, gain=gain, generator=generator)
-                mod.weight.copy_(w)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, VectorQuantizer):
-                cb = torch.rand(mod.codebook.shape, generator=generator, device=generator.device)
-                mod.codebook.copy_(cb * (2.0 / mod.num_embeddings))
+BC_ROOTS = ("encoder", "pre_actor", "actor", "encoder_agil", "gril_head", "quantizer")  # split(key, 6)
+
+
+def init_bc_params(models: BCModels, cfg, key) -> dict:
+    """The JAX package's init from the threefry ``key`` (bc.py:96-113):
+    ``split(key, 6)`` keys the submodules' own ``init`` calls, and each
+    kernel is drawn from its flax path's key (convert.flax_init):
+    orthogonal with relu gain for convs, gain 1 for dense layers, zero
+    biases, Oreo's raw codebook U(0, 2/K). Drawn on the host, copied into
+    ``models`` in place. Returns the state dict."""
+    shapes = {k: tuple(v.shape) for k, v in models.state_dict().items()}
+    tree = flax_init(bc_layout(cfg), shapes, dict(zip(BC_ROOTS, split(key, len(BC_ROOTS)))),
+                     orthogonal_init)
+    models.load_state_dict(params_from_flax(tree, cfg))
     return models.state_dict()
 
 
-def init_bc_state(cfg, generator: torch.Generator, tx, device="cuda") -> tuple[BCModels, TrainState]:
-    """Models on ``device`` and a TrainState holding a copy of their seeded
-    parameters. Oreo's quantizer is frozen (the reference sets
+def init_bc_state(cfg, key, tx, device="cuda") -> tuple[BCModels, TrainState]:
+    """Models on ``device`` and a TrainState holding a copy of their
+    parameters from ``key``. Oreo's quantizer is frozen (the reference sets
     requires_grad=False, train_bc.py:91-93) and masked out of the
     optimizer, so weight decay cannot move it."""
     models = build_bc_models(cfg, device)
-    params = {k: v.detach().clone() for k, v in init_bc_params(models, cfg, generator).items()}
+    params = {k: v.detach().clone() for k, v in init_bc_params(models, cfg, key).items()}
     if models.quantizer is not None:
         tx = masked(tx, ("quantizer.",))
     return models, TrainState.create(params, tx)
@@ -255,9 +263,12 @@ def _reg_loss(models: BCModels, cfg, params, z, z_flat, gg, gc, xx, ivg, rep: in
     return torch.zeros((), device=xx.device)
 
 
-def step_draws(rng, cfg, bsz: int, device, train: bool = True) -> dict:
+def step_draws(rng, cfg, bsz: int, device, train: bool = True, rows=None) -> dict:
     """The random draws of one loss evaluation on a batch of ``bsz``
-    (module docstring), from a generator, or checked out of a given dict."""
+    (module docstring): from a key, or checked out of a given dict.
+    ``rows = (start, total)`` draws this batch as rows [start, start +
+    bsz) of a batch of ``total``, JAX's draws for a rank's rows of a
+    global batch."""
     d = cfg.dropout["method"]
     h, w = cfg.data["img_height"], cfg.data["img_width"]
     want = {}
@@ -270,22 +281,36 @@ def step_draws(rng, cfg, bsz: int, device, train: bool = True) -> dict:
     if not want:
         return {}
     if rng is None:
-        raise ValueError(f"dropout {d!r} needs a torch.Generator or explicit draws")
-    if isinstance(rng, torch.Generator):
-        out = {}
-        if "igmd" in want:
-            out["igmd"] = [torch.rand(s, generator=rng, device=device) for s in want["igmd"]]
-        if "gmd" in want:
-            out["gmd"] = torch.rand(want["gmd"], generator=rng, device=device)
-        if "oreo" in want:
-            u = torch.rand(want["oreo"], generator=rng, device=device)
-            out["oreo"] = (u < 1.0 - cfg.dropout["oreo_prob"]).float()
-        return out
-    for k, shape in want.items():
-        got = [tuple(t.shape) for t in rng[k]] if k == "igmd" else tuple(rng[k].shape)
-        if got != shape:
-            raise ValueError(f"draws[{k!r}] must be {shape}, got {got}")
-    return {k: rng[k] for k in want}
+        raise ValueError(f"dropout {d!r} needs a threefry key or explicit draws")
+    if isinstance(rng, dict):
+        for k, shape in want.items():
+            got = [tuple(t.shape) for t in rng[k]] if k == "igmd" else tuple(rng[k].shape)
+            if got != shape:
+                raise ValueError(f"draws[{k!r}] must be {shape}, got {got}")
+        return {k: rng[k] for k in want}
+    start, total = (0, bsz) if rows is None else rows
+    _, k_gmd, k_igmd, k_oreo = split(rng, 4)
+
+    def rows_of(key, shape, p=None, reps: int = 1):
+        # the rows [start, start + bsz) of each of ``reps`` stacked draws of
+        # ``total`` rows: contiguous counter ranges of the global draw, one
+        # range (one launch) for the whole batch
+        per = int(np.prod(shape[1:]))
+        if total == bsz:
+            return threefry_kernel.random_floats(key, shape[0] * per, device, 0, p).reshape(shape)
+        parts = [threefry_kernel.random_floats(key, bsz * per, device, (j * total + start) * per, p)
+                 for j in range(reps)]
+        return torch.cat(parts).reshape(shape)
+
+    out = {}
+    if "igmd" in want:  # the encoder's two make_rng("dropout") keys (models/encoder.py:81, :86)
+        out["igmd"] = [rows_of(flax_fold(k_igmd, i + 1), s) for i, s in enumerate(want["igmd"])]
+    if "gmd" in want:
+        out["gmd"] = rows_of(k_gmd, want["gmd"])
+    if "oreo" in want:
+        out["oreo"] = rows_of(k_oreo, want["oreo"], 1.0 - cfg.dropout["oreo_prob"],
+                              cfg.dropout["oreo_num_mask"])
+    return out
 
 
 def bc_loss_fn(params, models: BCModels, cfg, batch, rng=None, train: bool = True,
@@ -293,7 +318,7 @@ def bc_loss_fn(params, models: BCModels, cfg, batch, rng=None, train: bool = Tru
     """Full BC loss (train_bc.py:203-299) -> (total, metrics).
 
     batch: obs_seq [B, L, H, W, C] uint8, gaze_seq [B, L, P*2] float32,
-    actions [B, A] or [B, L, A] float32. ``rng``: a Generator or the draws
+    actions [B, A] or [B, L, A] float32. ``rng``: a key or the draws
     (module docstring). ``per_key`` [B] replaces the content keys of the
     partial-gaze hash (the frame sums), whose float32 summation order
     differs between frameworks.
@@ -384,17 +409,26 @@ def loss_and_grads(models: BCModels, cfg, params: dict, batch, rng=None, train: 
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_bc_train_step(models: BCModels, cfg, group=None):
+def make_bc_train_step(models: BCModels, cfg, group=None, global_rows: bool = False):
     """(state, batch, rng) -> (new state, metrics): autograd of bc_loss_fn,
-    then the optimizer the state carries. ``rng`` is a torch.Generator on
-    the batch's device or the step's draws (module docstring). The state
-    passed in is left as it was. With a process ``group`` the gradients
-    and metrics are averaged over it in one all-reduce before the
-    optimizer (parallel/mesh.py pmean; JAX bc.py:327-329), so every rank
-    applies the same update."""
+    then the optimizer the state carries. ``rng`` is a threefry key or the
+    step's draws (module docstring). The state passed in is left as it
+    was. With a process ``group`` the gradients and metrics are averaged
+    over it in one all-reduce before the optimizer (parallel/mesh.py pmean;
+    JAX bc.py:327-329), so every rank applies the same update.
+    ``global_rows``: the batch is this rank's rows of a global batch cut by
+    parallel/mesh.py shard_batch, and a key draws those rows of the global
+    batch's draws, as JAX's step over the sharded batch does; otherwise
+    (a rank's own epoch key, device_data.make_sharded_epoch_fn) the key
+    draws for the batch as it is."""
 
     def step(state: TrainState, batch, rng=None):
-        _, metrics, grads = loss_and_grads(models, cfg, state.params, batch, rng)
+        bsz = batch["obs_seq"].shape[0]
+        rows = None
+        if global_rows and group is not None:
+            rows = (dist.get_rank(group) * bsz, dist.get_world_size(group) * bsz)
+        draws = step_draws(rng, cfg, bsz, batch["obs_seq"].device, rows=rows)
+        _, metrics, grads = loss_and_grads(models, cfg, state.params, batch, draws)
         if group is not None:
             grads, metrics = pmean((grads, metrics), group)
         return state.apply_gradients(grads), metrics

@@ -41,7 +41,7 @@ def save_resume_state(ckpt_dir: str | Path, epoch_done: int, tree: dict, meta: d
     """Preemption-safe full-state checkpoint after ``epoch_done`` epochs.
 
     ``<ckpt_dir>/_resume_ep<N>/tree.pt`` holds the tensors (params,
-    optimizer state, step generator state, keep-best params); ``meta.json``
+    optimizer state, step key, keep-best params); ``meta.json``
     beside it the host cursors (epoch, global step, numpy bit-generator
     state, keep-best trackers). meta.json is written atomically AFTER the
     tree, so a directory without it is the leftover of a killed save and is

@@ -21,7 +21,7 @@ import torch
 
 from ..data.dataset import EpisodeStore
 from ..parallel.mesh import data_rank, data_size
-from ..utils.prng import fold_in
+from ..utils.prng import fold_in, split
 
 
 class DeviceData:
@@ -137,19 +137,18 @@ def make_sharded_epoch_fn(data: ShardedDeviceData, step_fn, steps_per_epoch: int
     local_bs], key) -> (state, mean metrics). ``step_fn`` must carry the
     all-reduce (built with the mesh's 'data' group), so the state stays
     replicated and the metrics are already the mean over the ranks. The
-    step draws come from a generator seeded with ``fold_in(key, rank)``
-    (a threefry key, utils/prng.py; JAX :124), so they need no state of
-    their own to resume."""
+    rank folds its index into the epoch's threefry key and splits the
+    result once a step (JAX :161, :165), so its draws are the JAX shard's."""
     arrays = data.arrays()
 
     def epoch(state, perm: np.ndarray, key):
         idx = torch.from_numpy(perm[data.rank].astype(np.int64)).to(data.device)
         idx = idx.reshape(steps_per_epoch, local_bs)
-        k = fold_in(key, data.rank)
-        gen = torch.Generator(device=data.device).manual_seed((int(k[0]) << 32) | int(k[1]))
+        key = fold_in(key, data.rank)
         history = []
         for i in range(steps_per_epoch):
-            state, metrics = step_fn(state, gather_from(arrays, idx[i]), gen)
+            key, sub = split(key)
+            state, metrics = step_fn(state, gather_from(arrays, idx[i]), sub)
             history.append(metrics)
         return state, {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
 
@@ -161,8 +160,8 @@ def make_epoch_fn(data: DeviceData, loss_grad_apply, steps_per_epoch: int, batch
     (state, mean metrics as 0-d device tensors).
 
     ``loss_grad_apply(state, batch, rng) -> (state, metrics)`` is the usual
-    step. ``rng`` is a torch.Generator every step draws from, or a sequence
-    of ``steps_per_epoch`` per-step draws.
+    step. ``rng`` is the epoch's threefry key, split once a step (JAX
+    :207), or a sequence of ``steps_per_epoch`` per-step draws.
     """
     arrays = data.arrays()
 
@@ -172,7 +171,10 @@ def make_epoch_fn(data: DeviceData, loss_grad_apply, steps_per_epoch: int, batch
             raise ValueError(f"need {steps_per_epoch} per-step draws, got {len(rng)}")
         history = []
         for i in range(steps_per_epoch):
-            step_rng = rng[i] if isinstance(rng, (list, tuple)) else rng
+            if isinstance(rng, (list, tuple)):
+                step_rng = rng[i]
+            else:
+                rng, step_rng = split(rng)
             state, metrics = loss_grad_apply(state, gather_from(arrays, idx[i]), step_rng)
             history.append(metrics)
         return state, {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}

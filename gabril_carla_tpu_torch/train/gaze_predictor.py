@@ -12,12 +12,11 @@ Parameters are a flat state dict of the model, applied with
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..convert import flax_init, gaze_layout, gaze_params_from_flax, lecun_init, orthogonal_init
 from ..models.encoder import AutoEncoder
 from ..models.unet import UNet
 from ..ops.heatmap import GazeHeatmapper
@@ -59,44 +58,24 @@ def build_gaze_models(cfg, device="cuda"):
     return model.to(device), heatmapper
 
 
-def init_gaze_params(model: nn.Module, generator: torch.Generator) -> dict:
-    """Seeded init from ``generator``, in place, as flax's initializers:
-    the AutoEncoder's convs orthogonal with relu gain (a transposed conv's
-    rows are its output channels, as in flax's [kh*kw*in, out] kernel); the
-    UNet's lecun-normal (truncated, fan-in); zero biases, GroupNorm scale 1.
-    Returns the state dict."""
-    init_convs(model, generator, ortho=isinstance(model, AutoEncoder))
+def init_gaze_params(model: nn.Module, cfg, key) -> dict:
+    """The JAX package's ``model.init(key, ...)`` (gaze_predictor.py:61):
+    each kernel from its flax path's key (convert.flax_init); the
+    AutoEncoder's convs and transposed convs orthogonal with relu gain over
+    flax's [kh*kw*in, out] kernel, the UNet's flax's default lecun-normal
+    (truncated, fan in); zero biases, GroupNorm scales 1. Drawn on the
+    host, copied into ``model`` in place. Returns the state dict."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    init = lecun_init if cfg.model.get("arch", "autoencoder") == "unet" else orthogonal_init
+    model.load_state_dict(gaze_params_from_flax(flax_init(gaze_layout(cfg), shapes, {None: key}, init), cfg))
     return model.state_dict()
 
 
-def init_convs(model: nn.Module, generator: torch.Generator, ortho: bool = True):
-    """Every conv, transposed conv and GroupNorm of ``model`` initialized in
-    place from ``generator`` (init_gaze_params says how)."""
-    dev = generator.device
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                transposed = isinstance(mod, nn.ConvTranspose2d)
-                shape = mod.weight.shape
-                out_first = (shape[1], shape[0], *shape[2:]) if transposed else tuple(shape)
-                w = torch.empty(out_first, dtype=torch.float32, device=dev)
-                if ortho:
-                    nn.init.orthogonal_(w, gain=math.sqrt(2.0), generator=generator)
-                else:
-                    std = math.sqrt(1.0 / (w[0].numel())) / 0.87962566103423978
-                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-                mod.weight.copy_(w.transpose(0, 1) if transposed else w)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.GroupNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-
-
-def init_gaze_state(cfg, generator: torch.Generator, tx, device="cuda"):
-    """((model, heatmapper), TrainState) with a copy of the seeded params."""
+def init_gaze_state(cfg, key, tx, device="cuda"):
+    """((model, heatmapper), TrainState) with a copy of the params from
+    ``key``."""
     model, heatmapper = build_gaze_models(cfg, device)
-    params = {k: v.detach().clone() for k, v in init_gaze_params(model, generator).items()}
+    params = {k: v.detach().clone() for k, v in init_gaze_params(model, cfg, key).items()}
     return (model, heatmapper), TrainState.create(params, tx)
 
 

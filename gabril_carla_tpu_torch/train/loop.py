@@ -6,10 +6,18 @@ with the dataset resident on the device, one epoch of steps that gather
 their batches there (train/device_data.py); otherwise a host iterator of
 shuffled numpy batches, each copied to the device for one train step.
 
+Randomness is the JAX package's (loop.py:52,119,165,175,239): the init
+from ``prng_key(seed)``, the step key ``prng_key(seed + 1)`` split once an
+epoch on the device-resident paths (each step then splits the epoch's key,
+train/device_data.py) and once a step on the host-batch path, and the
+VQ-VAE's revive after epoch e from ``fold_in(prng_key(77), e)``; the
+shuffles are numpy's ``default_rng(seed)``. So ``training.seed = s`` trains
+the JAX Trainer's run of seed s, up to float rounding.
+
 Full-state resume: ``save_resume`` / ``restore_resume`` carry the params,
-the optimizer state, the step count, the step generator's state, numpy's
-bit-generator state and the keep-best trackers, so a killed run continues
-bit for bit (``train(resume=True)``).
+the optimizer state, the step count, the step key, numpy's bit-generator
+state and the keep-best trackers, so a killed run continues bit for bit
+(``train(resume=True)``).
 
 Data parallel over the 'data' ranks of a mesh (parallel/mesh.py; one
 process per rank under torchrun): device-resident epochs shard whole
@@ -34,7 +42,7 @@ import torch.distributed as dist
 from ..data.dataset import BCDataset
 from ..parallel.mesh import broadcast_state, data_group, data_size, first_rank, shard_batch
 from ..utils.logging import ExperimentLogger
-from ..utils.prng import prng_key, split
+from ..utils.prng import fold_in, prng_key, split
 from ..utils.profiling import StageTimer
 from .bc import init_bc_state, make_bc_train_step
 from .checkpoint import (latest_resume_state, load_resume_tree, restore_params, save_manifest,
@@ -48,7 +56,7 @@ from .vqvae import init_vqvae_state, make_revive_dead_codes, make_vqvae_train_st
 # many times worse than the best epoch's, i.e. only on a mid-run MSE-head
 # blowup, never as silent best-checkpoint selection.
 COLLAPSE_GATE = 2.0
-REVIVE_SEED = 77  # epoch e's revive draws: a generator seeded REVIVE_SEED + e
+REVIVE_SEED = 77  # epoch e's revive key: fold_in(prng_key(REVIVE_SEED), e) (JAX loop.py:239)
 REVIVE_PROBE = 512  # samples the revive encodes
 
 
@@ -109,15 +117,17 @@ class Trainer:
             dist.broadcast_object_list(name, src=first_rank(mesh))
             if not self._is_main:
                 self.logger = ExperimentLogger(cfg, run_name=name[0], write=False)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        key = prng_key(seed)
         if mode == "bc":
-            self.models, self.state = init_bc_state(cfg, gen, tx, self.device)
-            self.step_fn = make_bc_train_step(self.models, cfg, group)
+            self.models, self.state = init_bc_state(cfg, key, tx, self.device)
+            # the host path's ranks hold rows of one global batch (shard_batch)
+            self.step_fn = make_bc_train_step(self.models, cfg, group,
+                                              global_rows=not self.device_mode)
         elif mode == "gaze":
-            (self.model, self.heatmapper), self.state = init_gaze_state(cfg, gen, tx, self.device)
+            (self.model, self.heatmapper), self.state = init_gaze_state(cfg, key, tx, self.device)
             self.step_fn = make_gaze_train_step(self.model, self.heatmapper, cfg, group)
         else:
-            self.model, self.state = init_vqvae_state(cfg, gen, tx, self.device)
+            self.model, self.state = init_vqvae_state(cfg, key, tx, self.device)
             self.step_fn = make_vqvae_train_step(self.model, cfg, group)
             self._revive_fn = make_revive_dead_codes(self.model, cfg)
         if mesh is not None:
@@ -140,9 +150,6 @@ class Trainer:
             self.epoch_fn = make_epoch_fn(self.device_data, self.step_fn, self.steps_per_epoch, bs)
         self.timer = StageTimer()
         self._rng = np.random.default_rng(seed)
-        self._step_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        # the sharded epochs' key: split once an epoch, then folded with the
-        # rank (device_data.make_sharded_epoch_fn)
         self._step_key = prng_key(seed + 1)
         self._global_step = 0
         self._best_loss, self._best_params, self._best_epoch = float("inf"), None, -1
@@ -181,7 +188,8 @@ class Trainer:
             elif self.device_mode:
                 with self.timer.stage("epoch"):
                     perm = torch.from_numpy(self._rng.permutation(self.device_data.n_samples))
-                    self.state, metrics = self.epoch_fn(self.state, perm, self._step_gen)
+                    self._step_key, sub = split(self._step_key)
+                    self.state, metrics = self.epoch_fn(self.state, perm, sub)
                     avg = {k: float(v) for k, v in metrics.items()}
             else:
                 totals, count = {}, 0
@@ -191,7 +199,8 @@ class Trainer:
                             batch = shard_batch(batch, self.mesh)
                         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
                     with self.timer.stage("step"):
-                        self.state, metrics = self.step_fn(self.state, batch, self._step_gen)
+                        self._step_key, sub = split(self._step_key)
+                        self.state, metrics = self.step_fn(self.state, batch, sub)
                     count += 1
                     for k, v in metrics.items():
                         totals[k] = totals.get(k, 0.0) + v
@@ -228,7 +237,7 @@ class Trainer:
     def _revive_dead_codes(self, epoch: int) -> int:
         """Between VQ-VAE epochs: re-seed the codebook rows no latent of the
         first REVIVE_PROBE samples maps to (vqvae.make_revive_dead_codes),
-        with draws from a generator seeded REVIVE_SEED + epoch. The probe
+        with draws from the key ``fold_in(prng_key(REVIVE_SEED), epoch)``. The probe
         batch is gathered on the device when the dataset lives there. Under
         sharding the codes' usage is shard-local, so nothing is revived and
         the count is -1 (JAX loop.py:230-232)."""
@@ -241,8 +250,8 @@ class Trainer:
             n = min(REVIVE_PROBE, len(self.dataset))
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in self.dataset.sample(np.arange(n)).items()}
-        gen = torch.Generator(device=self.device).manual_seed(REVIVE_SEED + epoch)
-        params, dead = self._revive_fn(self.state.params, batch, gen)
+        key = fold_in(prng_key(REVIVE_SEED), epoch)
+        params, dead = self._revive_fn(self.state.params, batch, key)
         self.state = dataclasses.replace(self.state, params=params)
         return int(dead)
 
@@ -266,7 +275,7 @@ class Trainer:
         save_resume_state); the mesh's first rank writes it."""
         if self._is_main:
             tree = {"params": self.state.params, "opt_state": self.state.opt_state,
-                    "step": self.state.step, "step_gen": self._step_gen.get_state(),
+                    "step": self.state.step,
                     "step_key": torch.from_numpy(self._step_key.astype(np.int64))}
             if self._best_params is not None:
                 tree["best_params"] = self._best_params
@@ -290,7 +299,6 @@ class Trainer:
         self.state = dataclasses.replace(self.state, params=tree_to(tree["params"], self.device),
                                          opt_state=tree_to(tree["opt_state"], self.device),
                                          step=int(tree["step"]))
-        self._step_gen.set_state(tree["step_gen"])
         self._step_key = tree["step_key"].numpy().astype(np.uint32)
         self._best_params = tree_to(tree["best_params"], self.device) if meta["has_best"] else None
         self._global_step = int(meta["global_step"])

@@ -18,12 +18,13 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..convert import flax_init, orthogonal_init, vqvae_layout, vqvae_params_from_flax
 from ..models.encoder import Decoder, Encoder
 from ..models.vq import VectorQuantizer
 from ..ops.image import format_obs_stack, stack_window_indices
-from .bc import _dtype, full_f32
-from .gaze_predictor import init_convs
 from ..parallel.mesh import pmean
+from ..utils.prng import fold_in, normal, randint, split
+from .bc import _dtype, full_f32
 from .optim import TrainState
 
 
@@ -53,22 +54,27 @@ def build_vqvae_models(cfg, device="cuda") -> VQVAE:
     return VQVAE(cfg).to(device)
 
 
-def init_vqvae_params(model: VQVAE, generator: torch.Generator) -> dict:
-    """Seeded init from ``generator``, in place, as flax's: convs and
-    transposed convs orthogonal with relu gain, zero biases, the raw
-    codebook U(0, 2/K). Returns the state dict."""
-    init_convs(model, generator)
-    with torch.no_grad():
-        q = model.quantizer
-        q.codebook.copy_(torch.rand(q.codebook.shape, generator=generator, device=generator.device)
-                         * (2.0 / q.num_embeddings))
+VQVAE_ROOTS = ("encoder", "quantizer", "decoder")  # split(key, 3), JAX vqvae.py:40
+
+
+def init_vqvae_params(model: VQVAE, cfg, key) -> dict:
+    """The JAX package's init from ``key`` (vqvae.py:36-45): ``split(key,
+    3)`` keys the encoder's, the quantizer's and the decoder's own
+    ``init``; kernels orthogonal with relu gain from their flax paths'
+    keys (convert.flax_init), zero biases, the raw codebook U(0, 2/K).
+    Drawn on the host, copied into ``model`` in place. Returns the state
+    dict."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    tree = flax_init(vqvae_layout(cfg), shapes, dict(zip(VQVAE_ROOTS, split(key, 3))), orthogonal_init)
+    model.load_state_dict(vqvae_params_from_flax(tree, cfg))
     return model.state_dict()
 
 
-def init_vqvae_state(cfg, generator: torch.Generator, tx, device="cuda"):
-    """(model on ``device``, TrainState with a copy of the seeded params)."""
+def init_vqvae_state(cfg, key, tx, device="cuda"):
+    """(model on ``device``, TrainState with a copy of the params from
+    ``key``)."""
     model = build_vqvae_models(cfg, device)
-    params = {k: v.detach().clone() for k, v in init_vqvae_params(model, generator).items()}
+    params = {k: v.detach().clone() for k, v in init_vqvae_params(model, cfg, key).items()}
     return model, TrainState.create(params, tx)
 
 
@@ -113,12 +119,13 @@ def make_vqvae_train_step(model: VQVAE, cfg, group=None):
     return step
 
 
-def revive_draws(generator: torch.Generator, n_rows: int, num_embeddings: int, dim: int) -> dict:
-    """The draws of one revive: ``pick`` [K] latent rows in [0, n_rows) and
-    ``jitter`` [K, D] standard normals (scaled by 0.01 in the revive)."""
-    dev = generator.device
-    return {"pick": torch.randint(0, n_rows, (num_embeddings,), generator=generator, device=dev),
-            "jitter": torch.randn((num_embeddings, dim), generator=generator, device=dev)}
+def revive_draws(key, n_rows: int, num_embeddings: int, dim: int, device) -> dict:
+    """The draws of one revive from the threefry ``key`` (JAX
+    vqvae.py:109-110), on the host, then on ``device``: ``pick`` [K] latent
+    rows, ``randint(key, (K,), 0, n_rows)``, and ``jitter`` [K, D] standard
+    normals from ``fold_in(key, 1)`` (scaled by 0.01 in the revive)."""
+    return {"pick": torch.from_numpy(randint(key, (num_embeddings,), 0, n_rows)).to(device),
+            "jitter": torch.from_numpy(normal(fold_in(key, 1), (num_embeddings, dim))).to(device)}
 
 
 def make_revive_dead_codes(model: VQVAE, cfg):
@@ -129,7 +136,7 @@ def make_revive_dead_codes(model: VQVAE, cfg):
     no latent of the probe batch maps to are re-seeded with randomly picked
     batch latents plus a small jitter (and the +1/K the quantizer's
     recentring removes). ``revive(params, batch, rng) -> (params, dead
-    count)``; ``rng`` is a torch.Generator or the draws of revive_draws.
+    count)``; ``rng`` is a threefry key or the draws of revive_draws.
     """
     enc_prefix = "encoder."
 
@@ -146,8 +153,8 @@ def make_revive_dead_codes(model: VQVAE, cfg):
                 - 2.0 * flat @ codebook.T)
         used = torch.zeros(k, dtype=torch.bool, device=raw.device)
         used[torch.argmin(dist, dim=1)] = True
-        draws = revive_draws(rng, flat.shape[0], k, flat.shape[1]) if isinstance(
-            rng, torch.Generator) else rng
+        draws = rng if isinstance(rng, dict) else revive_draws(rng, flat.shape[0], k, flat.shape[1],
+                                                                raw.device)
         if tuple(draws["pick"].shape) != (k,) or tuple(draws["jitter"].shape) != (k, flat.shape[1]):
             raise ValueError(f"revive draws must be pick [{k}] and jitter [{k}, {flat.shape[1]}]")
         fresh = flat[draws["pick"].long()] + 0.01 * draws["jitter"] + 1.0 / k

@@ -24,7 +24,8 @@ once a tick; at world size 1 on NCCL, the all-reduced step bitwise the
 plain one and the sharded eval bitwise rollout_routes without a mesh; the
 human loop's core launching the kernel once a tick and replayed bitwise
 through collect; the native gather bitwise the numpy loop on the card
-machine's host.
+machine's host; the threefry kernel bitwise its plain version and numpy's
+threefry, once a launch a draw of a train step.
 """
 
 import itertools
@@ -47,6 +48,7 @@ from gabril_carla_tpu_torch.ops import render_kernel as K
 from gabril_carla_tpu_torch.train.bc import (DROPOUT_METHODS, GAZE_METHODS, init_bc_state,
                                              make_bc_policy_fn, make_bc_train_step)
 from gabril_carla_tpu_torch.train.optim import build_optimizer
+from gabril_carla_tpu_torch.utils.prng import prng_key, split
 
 pytestmark = pytest.mark.gpu
 
@@ -147,12 +149,12 @@ def test_bench_config_train_steps(cuda):
     warmup schedule's rate is 0 at the first)."""
     cfg = bench_train_cfg()
     tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-    models, state0 = init_bc_state(cfg, torch.Generator(device=cuda).manual_seed(0), tx)
+    models, state0 = init_bc_state(cfg, prng_key(0), tx)
     step = make_bc_train_step(models, cfg)
     batch = bench_batch(cfg, cfg.data["batch_size"], cuda)
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    state, _ = step(state0, batch, gen)
-    state, metrics = step(state, batch, gen)
+    keys = split(prng_key(1))
+    state, _ = step(state0, batch, keys[0])
+    state, metrics = step(state, batch, keys[1])
     assert all(bool(torch.isfinite(v)) for v in metrics.values()) and float(metrics["loss_reg"]) > 0
     moved = [k for k in state.params if not torch.equal(state.params[k], state0.params[k])]
     assert len(moved) == len(state.params), set(state.params) - set(moved)
@@ -275,7 +277,7 @@ def test_sharded_eval_equals_unsharded(nccl_mesh):
     cfg["training"]["compute_dtype"] = "float32"
     cfg["model"].update(num_hiddens=8, embedding_dim=8, z_dim=16, num_residual_hiddens=4)
     models = build_bc_models(cfg, "cuda")
-    params = init_bc_params(models, cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = init_bc_params(models, cfg, prng_key(0))
     params["actor.fc2.bias"][0] = THROTTLE_BIAS
     out = sharded_eval_check(nccl_mesh, make_bc_policy_fn(models, cfg), cfg, params,
                              load_benchmark_specs(seen_routes()[:3]), 12)
@@ -311,3 +313,46 @@ def test_native_gather_on_the_card_host(cuda):
     batch = BCDataset(store, 2).sample(np.arange(500))
     for v in batch.values():
         assert torch.equal(torch.from_numpy(v).to(cuda).cpu(), torch.from_numpy(v))
+
+
+# --- JAX's training draws on the card (csrc/threefry.cu) ----------------------
+
+
+@pytest.mark.parametrize("n,offset,p", [(1, 0, None), (28_800_000, 0, None), (4096, 2**32 - 2048, None),
+                                        (1_024_000, 7, 0.5)], ids=["one", "igmd", "high_word", "oreo"])
+def test_threefry_kernel_matches_plain(cuda, n, offset, p):
+    """The kernel bitwise its plain version on the card, one launch a call;
+    the first 4096 elements bitwise numpy's threefry (chip_smoke.host_uniform)."""
+    from chip_smoke import host_uniform
+    from gabril_carla_tpu_torch.ops import threefry_kernel as TK
+
+    key = split(prng_key(3))[1]
+    before = TK.threefry_kernel.launches
+    got = TK.random_floats(key, n, cuda, offset, p)
+    torch.cuda.synchronize()
+    assert TK.threefry_kernel.launches == before + 1 and got.shape == (n,) and got.dtype == torch.float32
+    plain = TK.random_floats_plain(key, n, cuda, offset, p)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    m = min(n, 4096)
+    want = host_uniform(key, offset, m)
+    if p is not None:
+        want = (want < 0.5).astype("float32")
+    assert (got[:m].cpu().numpy() == want).all()
+
+
+@pytest.mark.parametrize("dropout,launches", [("None", 0), ("GMD", 1), ("IGMD", 2), ("Oreo", 1)])
+def test_train_step_draws_on_card(cuda, dropout, launches):
+    """A BC step's draws launch the kernel once a draw and equal the CPU's
+    draws of the same key bitwise."""
+    from chip_smoke import narrow_cfg
+    from gabril_carla_tpu_torch.ops import threefry_kernel as TK
+    from gabril_carla_tpu_torch.train.bc import step_draws
+
+    cfg = narrow_cfg("Reg", dropout)
+    before = TK.threefry_kernel.launches
+    got = step_draws(prng_key(5), cfg, 4, cuda)
+    assert TK.threefry_kernel.launches == before + launches
+    want = step_draws(prng_key(5), cfg, 4, "cpu")
+    for k in want:
+        pairs = zip(got[k], want[k]) if k == "igmd" else [(got[k], want[k])]
+        assert all(torch.equal(a.cpu(), b) for a, b in pairs)

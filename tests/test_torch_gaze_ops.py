@@ -24,6 +24,7 @@ from gabril_carla_tpu_torch.models.vq import VectorQuantizer
 from gabril_carla_tpu_torch.ops import gaze as PG
 from gabril_carla_tpu_torch.ops import heatmap as PH
 from gabril_carla_tpu_torch.ops import image as PI
+from gabril_carla_tpu_torch.ops.threefry_kernel import uniform
 from test_torch_common import nchw
 
 P = 5
@@ -146,12 +147,14 @@ def test_gmd_train_mode_replays_jax_uniforms():
     key = jax.random.PRNGKey(3)
     want = np.asarray(JG.gmd_dropout(jnp.asarray(z), jnp.asarray(g), key=key))
     a = nchw(jax.random.uniform(key, (3, 4, 6, 1), dtype=jnp.float32))
+    # the port draws the same uniforms from the same key (ops/threefry_kernel.py)
+    assert torch.equal(uniform(np.asarray(key), (3, 1, 4, 6), "cpu"), a)
     got = PG.gmd_dropout(nchw(z), nchw(g), uniforms=a)
     want = nchw(want)
     np.testing.assert_array_equal(got.numpy() == 0, want.numpy() == 0)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
     with pytest.raises(ValueError):
-        PG.gmd_dropout(nchw(z), nchw(g))  # train mode with neither uniforms nor generator
+        PG.gmd_dropout(nchw(z), nchw(g))  # train mode without its uniforms
 
 
 def test_vq_forward_matches():

@@ -24,7 +24,7 @@ from gabril_carla_tpu_torch.parallel import make_mesh, make_multislice_mesh, pme
 from gabril_carla_tpu_torch.parallel.mesh import data_group
 from gabril_carla_tpu_torch.train.bc import (build_bc_models, init_bc_params, loss_and_grads,
                                              make_bc_policy_fn, make_bc_train_step)
-from gabril_carla_tpu_torch.train.device_data import ShardedDeviceData
+from gabril_carla_tpu_torch.train.device_data import ShardedDeviceData, make_sharded_epoch_fn
 from gabril_carla_tpu_torch.train.loop import Trainer
 from gabril_carla_tpu_torch.train.optim import TrainState, build_optimizer
 from gabril_carla_tpu_torch.utils.config import default_bc_config
@@ -34,6 +34,7 @@ EVAL_ROUTES = [3100, 27494, 2416, 24211]  # seen routes: 4 worlds, 2 a rank
 EVAL_TICKS, EVAL_KEY = 20, 9
 PERM_STEPS, PERM_BS = 3, 4
 RESUME_DEMOS, RESUME_STEPS = 4, 16  # 64 samples: 8 steps an epoch at batch 8
+SHARD_KEY, SHARD_STEPS = 11, 3  # tests/test_torch_train_draws.py: the sharded epoch's key, its steps
 
 
 def spawn(job, world: int, tmp) -> list[dict]:
@@ -92,7 +93,7 @@ def eval_policy():
     so the worlds drive."""
     cfg = eval_cfg()
     models = build_bc_models(cfg, device="cpu")
-    params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+    params = init_bc_params(models, cfg, prng_key(0))
     params["actor.fc2.bias"][0] = 0.6
     return make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=EVAL_TICKS), params
 
@@ -168,6 +169,23 @@ def two_ranks(rank, world, tmp) -> dict:
     except ValueError as e:
         out["eval_uneven"] = str(e)
     return out
+
+
+def sharded_keys(rank, world, tmp) -> dict:
+    """The keys make_sharded_epoch_fn hands each step on this rank, from
+    the epoch key prng_key(SHARD_KEY)."""
+    mesh = make_mesh(device="cpu")
+    store = synthetic_episodes(n_demos=4, steps=6, img_hw=(24, 48), max_points=3)
+    sdd = ShardedDeviceData(store, 2, mesh, grayscale_store=True, device="cpu")
+    seen = []
+
+    def step(state, batch, key):
+        seen.append(np.array(key))
+        return state, {"loss": torch.zeros(())}
+
+    perm = sdd.epoch_perm(np.random.default_rng(0), SHARD_STEPS, 2)
+    make_sharded_epoch_fn(sdd, step, SHARD_STEPS, 2)(None, perm, prng_key(SHARD_KEY))
+    return {"rank": sdd.rank, "keys": np.stack(seen)}
 
 
 def four_ranks(rank, world, tmp) -> dict:

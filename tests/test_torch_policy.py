@@ -22,6 +22,7 @@ from gabril_carla_tpu_torch.models.encoder import latent_hw
 from gabril_carla_tpu_torch.models.heads import MLP
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
+from gabril_carla_tpu_torch.utils.prng import prng_key
 
 
 def cfg_for(width: str, dtype: str, port: bool = False):
@@ -104,8 +105,8 @@ def test_mlp_matches_flax():
 
 def test_init_is_seeded_orthogonal():
     cfg = cfg_for("small", "float32", port=True)
-    a = PB.init_bc_params(PB.build_bc_models(cfg, device="cpu"), cfg, torch.Generator().manual_seed(0))
-    b = PB.init_bc_params(PB.build_bc_models(cfg, device="cpu"), cfg, torch.Generator().manual_seed(0))
+    a = PB.init_bc_params(PB.build_bc_models(cfg, device="cpu"), cfg, prng_key(0))
+    b = PB.init_bc_params(PB.build_bc_models(cfg, device="cpu"), cfg, prng_key(0))
     assert all(torch.equal(a[k], b[k]) for k in a)
     w = a["encoder.mid.weight"].reshape(a["encoder.mid.weight"].shape[0], -1)
     np.testing.assert_allclose((w @ w.T).numpy(), 2.0 * np.eye(w.shape[0]), atol=1e-4)  # relu gain^2
@@ -133,7 +134,7 @@ def test_unported_methods_raise(gaze, dropout):
     cfg = cfg_for("small", "float32", port=True)
     cfg["gaze"]["method"], cfg["dropout"]["method"] = gaze, dropout
     models = PB.build_bc_models(cfg, device="cpu")
-    params = PB.init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+    params = PB.init_bc_params(models, cfg, prng_key(0))
     obs, heat = torch.rand(2, 180, 320, 2), torch.rand(2, 180, 320, 2)
     out = PB.make_bc_policy_fn(models, cfg)(params, obs, heat)
     assert out.shape == (2, 7) and torch.isfinite(out).all()

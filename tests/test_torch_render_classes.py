@@ -206,7 +206,9 @@ def test_lower_window_rollout_matches_default():
     cfg["gaze"]["method"] = "None"
     cfg["model"].update(num_hiddens=8, embedding_dim=8, z_dim=16, num_residual_hiddens=4)
     models = build_bc_models(cfg, device="cpu")
-    params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
+    params = init_bc_params(models, cfg, prng_key(0))
     spec = to_torch(stack_specs([port_build({"id": i, "town": "T", "waypoints": w, "scenarios": [],
                                              "weather": [0, 0, 0, 90]})
                                  for i, w in enumerate((LOOP, STRAIGHT))]), "cpu")

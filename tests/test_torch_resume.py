@@ -7,6 +7,7 @@ tests/test_device_data.py's full-state checkpoint test.
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,7 +135,8 @@ def test_full_state_checkpoint_resume(tmp_path, device_data):
     assert tr2.state.step == tr.state.step and tr2._global_step == tr._global_step
     assert_trees_equal(tr2.state.params, tr.state.params)
     assert_trees_equal(tr2.state.opt_state, tr.state.opt_state)
-    assert torch.equal(tr2._step_gen.get_state(), tr._step_gen.get_state())
+    np.testing.assert_array_equal(tr2._step_key, tr._step_key)
+    assert tr2._step_key.dtype == tr._step_key.dtype == np.uint32
     assert tr2._rng.bit_generator.state == tr._rng.bit_generator.state
 
 

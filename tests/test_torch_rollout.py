@@ -157,9 +157,9 @@ def test_port_runs_without_jax():
         cfg["gaze"]["method"] = "None"
         cfg["model"].update(num_hiddens=8, embedding_dim=8, z_dim=16, num_residual_hiddens=4)
         models = build_bc_models(cfg, device="cpu")
-        params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
-        fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=3)
         from gabril_carla_tpu_torch.utils.prng import prng_key
+        params = init_bc_params(models, cfg, prng_key(0))
+        fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=3)
         st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, prng_key(0), device="cpu")
         assert trace.shape == (3, 1, 2) and bool(torch.isfinite(trace).all())
         import tempfile
@@ -177,10 +177,10 @@ def test_port_runs_without_jax():
         cfg["gaze"]["method"], cfg["dropout"]["method"] = "Reg", "GMD"
         cfg["data"].update(img_height=24, img_width=48)
         tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, 2)
-        models, state = init_bc_state(cfg, torch.Generator().manual_seed(0), tx, device="cpu")
+        models, state = init_bc_state(cfg, prng_key(0), tx, device="cpu")
         ds = BCDataset(synthetic_episodes(n_demos=1, steps=4, img_hw=(24, 48)), frame_stack=2)
         batch = {k: torch.from_numpy(v) for k, v in ds.sample([0, 1, 2, 3]).items()}
-        new, metrics = make_bc_train_step(models, cfg)(state, batch, torch.Generator().manual_seed(1))
+        new, metrics = make_bc_train_step(models, cfg)(state, batch, prng_key(1))
         assert new.step == 1 and bool(torch.isfinite(metrics["loss"])) and float(metrics["loss_reg"]) > 0
         from gabril_carla_tpu_torch.cli import eval_routes
         from gabril_carla_tpu_torch.eval.agent import BCAgent
@@ -191,7 +191,7 @@ def test_port_runs_without_jax():
                              num_residual_hiddens=4)
         gcfg["training"]["compute_dtype"] = "float32"
         tx = build_optimizer(gcfg.optimizer, gcfg.scheduler, gcfg.training, 2)
-        (model, hm), gstate = init_gaze_state(gcfg, torch.Generator().manual_seed(0), tx, device="cpu")
+        (model, hm), gstate = init_gaze_state(gcfg, prng_key(0), tx, device="cpu")
         ds = BCDataset(synthetic_episodes(n_demos=1, steps=2, img_hw=(180, 320)), frame_stack=2)
         batch = {k: torch.from_numpy(v) for k, v in ds.sample([0, 1]).items()}
         gnew, gm = make_gaze_train_step(model, hm, gcfg)(gstate, batch)
@@ -199,7 +199,7 @@ def test_port_runs_without_jax():
         cfg["gaze"]["method"], cfg["dropout"]["method"] = "ViSaRL", "None"
         cfg["data"].update(img_height=180, img_width=320)
         models = build_bc_models(cfg, device="cpu")
-        params = init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+        params = init_bc_params(models, cfg, prng_key(0))
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=2, use_analytic_gaze=True)
         st, trace = rollout_routes(load_benchmark_specs([3100]), params, fn, prng_key(1), device="cpu")
         assert bool(torch.isfinite(trace).all())

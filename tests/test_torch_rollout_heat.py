@@ -37,6 +37,7 @@ from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.train.gaze_predictor import build_gaze_models, make_gaze_predictor_apply
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
+from gabril_carla_tpu_torch.utils.prng import prng_key
 from test_torch_common import port_spec, rollout_draws
 
 TICKS = 20
@@ -128,7 +129,7 @@ def tiny(method):
     cfg["gaze"].update(method=method, mask_sigma=10.0)
     cfg["training"]["compute_dtype"] = "float32"
     models = PB.build_bc_models(cfg, device="cpu")
-    params = PB.init_bc_params(models, cfg, torch.Generator().manual_seed(0))
+    params = PB.init_bc_params(models, cfg, prng_key(0))
     return cfg, PB.make_bc_policy_fn(models, cfg), params
 
 

@@ -30,6 +30,7 @@ from chip_smoke import without_wall
 from gabril_carla_tpu_torch.cli import eval_routes
 from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params
 from gabril_carla_tpu_torch.train.checkpoint import save_manifest, save_params
+from gabril_carla_tpu_torch.utils.prng import prng_key
 from test_torch_common import cpu_threads
 from test_torch_rollout import small_cfg
 
@@ -194,7 +195,7 @@ def test_eval_routes_on_the_xml(files, tmp_path):
     xml, _ = files
     cfg = small_cfg(port=True)
     with cpu_threads(1):
-        params = init_bc_params(build_bc_models(cfg, device="cpu"), cfg, torch.Generator().manual_seed(0))
+        params = init_bc_params(build_bc_models(cfg, device="cpu"), cfg, prng_key(0))
         save_params(tmp_path / "ckpt", 1, {k: v.detach() for k, v in params.items()})
         save_manifest(tmp_path / "ckpt", cfg, 1)
         args = ["--checkpoint", str(tmp_path / "ckpt"), "--route_id", "1825", "--seeds", "3",

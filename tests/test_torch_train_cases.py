@@ -14,6 +14,8 @@ import torch
 import gabril_carla_tpu.train.bc as JB
 from gabril_carla_tpu_torch import convert
 from gabril_carla_tpu_torch.train import bc as PB
+from gabril_carla_tpu_torch.ops.threefry_kernel import bernoulli
+from gabril_carla_tpu_torch.utils.prng import prng_key
 from test_torch_common import (REG_METHODS, bc_batch, bc_cfgs, check_against_jax, jax_loss,
                                port_loss, torch_batch)
 
@@ -87,9 +89,9 @@ def test_oreo_tiles_regularizer_targets(gaze):
     _, pcfg2 = bc_cfgs(gaze, "Oreo")
     _, pcfg1 = bc_cfgs(gaze, "Oreo", **{"dropout.oreo_num_mask": 1})
     models = PB.build_bc_models(pcfg2, device="cpu")
-    params = PB.init_bc_params(models, pcfg2, torch.Generator().manual_seed(0))
+    params = PB.init_bc_params(models, pcfg2, prng_key(0))
     batch = torch_batch(bc_batch())
-    mask = (torch.rand((8, 16), generator=torch.Generator().manual_seed(1)) < 0.5).float()
+    mask = bernoulli(prng_key(1), 0.5, (8, 16), "cpu")
     loss2, m2 = PB.bc_loss_fn(params, models, pcfg2, batch, {"oreo": mask})
     halves = [PB.bc_loss_fn(params, models, pcfg1, batch, {"oreo": mask[i:i + 4]})[1] for i in (0, 4)]
     for k in m2:
@@ -100,13 +102,13 @@ def test_oreo_tiles_regularizer_targets(gaze):
 def test_draws_are_checked():
     _, pcfg = bc_cfgs("Reg", "GMD")
     models = PB.build_bc_models(pcfg, device="cpu")
-    params = PB.init_bc_params(models, pcfg, torch.Generator().manual_seed(0))
+    params = PB.init_bc_params(models, pcfg, prng_key(0))
     batch = torch_batch(bc_batch())
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="key"):
         PB.bc_loss_fn(params, models, pcfg, batch)
     with pytest.raises(ValueError, match="gmd"):
         PB.bc_loss_fn(params, models, pcfg, batch, {"gmd": torch.zeros(4, 1, 2, 2)})
-    loss, _ = PB.bc_loss_fn(params, models, pcfg, batch, torch.Generator().manual_seed(2))
+    loss, _ = PB.bc_loss_fn(params, models, pcfg, batch, prng_key(2))
     assert torch.isfinite(loss)
 
 
@@ -117,9 +119,9 @@ def test_remat_matches():
     _, pcfg = bc_cfgs("Reg", "IGMD")
     _, pcfg_remat = bc_cfgs("Reg", "IGMD", **{"training.remat": True})
     models = PB.build_bc_models(pcfg, device="cpu")
-    params = PB.init_bc_params(models, pcfg, torch.Generator().manual_seed(0))
+    params = PB.init_bc_params(models, pcfg, prng_key(0))
     batch = torch_batch(bc_batch())
-    draws = PB.step_draws(torch.Generator().manual_seed(1), pcfg, 4, "cpu")
+    draws = PB.step_draws(prng_key(1), pcfg, 4, "cpu")
     loss, _, grads = PB.loss_and_grads(models, pcfg, params, batch, draws)
     loss_r, _, grads_r = PB.loss_and_grads(models, pcfg_remat, params, batch, draws)
     assert torch.equal(loss, loss_r)

@@ -4,7 +4,7 @@ train/device_data.py, train/checkpoint.py, train/loop.py) at 24x48.
 Bars: the synthetic episodes, host batches and device windows equal the JAX
 package's exactly; an epoch of make_epoch_fn equals the same steps run one
 by one bitwise (same operations in the same order), and the JAX package's
-epoch with its draws replayed within 2e-5 in every parameter: two Adam
+epoch from the same key, nothing replayed, within 2e-5 in every parameter: two Adam
 steps of lr 5e-4 on float32 gradients that agree to 1e-4 of their scale,
 but Adam divides a gradient by its own magnitude plus 1e-8, so where a
 gradient is near 1e-8 its float32 noise shows in the step (measured 7.3e-6
@@ -33,7 +33,8 @@ from gabril_carla_tpu_torch.train.checkpoint import latest_resume_state, load_ma
 from gabril_carla_tpu_torch.train.device_data import DeviceData, gather_from, make_epoch_fn
 from gabril_carla_tpu_torch.train.loop import Trainer
 from gabril_carla_tpu_torch.train.optim import TrainState, build_optimizer
-from test_torch_common import BC_A, BC_H, BC_P, BC_S, BC_W, KEY, bc_cfgs, jax_bc_draws
+from gabril_carla_tpu_torch.utils.prng import prng_key, split
+from test_torch_common import BC_A, BC_H, BC_P, BC_S, BC_W, KEY, bc_cfgs
 
 EPISODES = dict(n_demos=2, steps=6, img_hw=(BC_H, BC_W), max_points=BC_P, action_dim=BC_A, seed=3)
 
@@ -78,13 +79,13 @@ def test_epoch_equals_steps_one_by_one():
     _, pcfg, _, params, data, models, tx = epoch_setup()
     step = PB.make_bc_train_step(models, pcfg)
     perm = torch.from_numpy(np.random.default_rng(5).permutation(data.n_samples))
-    gen = torch.Generator().manual_seed(7)
-    draws = [{"gmd": torch.rand((4, 1, 1, 4), generator=gen)} for _ in range(3)]
-    state, metrics = make_epoch_fn(data, step, 3, 4)(TrainState.create(params, tx), perm, draws)
+    state, metrics = make_epoch_fn(data, step, 3, 4)(TrainState.create(params, tx), perm, prng_key(7))
     ref = TrainState.create(params, tx)
-    losses = []
+    losses, key, draws = [], prng_key(7), []
     for i in range(3):
-        ref, m = step(ref, gather_from(data.arrays(), perm[4 * i:4 * i + 4]), draws[i])
+        key, sub = split(key)  # the epoch splits its key once a step
+        draws.append(PB.step_draws(sub, pcfg, 4, "cpu"))
+        ref, m = step(ref, gather_from(data.arrays(), perm[4 * i:4 * i + 4]), sub)
         losses.append(m["loss"])
     assert state.step == ref.step == 3
     for k in params:
@@ -97,7 +98,8 @@ def test_epoch_equals_steps_one_by_one():
 @pytest.mark.parametrize("gaze,dropout", [("Reg", "GMD"), ("AGIL", "IGMD"), ("None", "Oreo")])
 def test_epoch_matches_jax_epoch(gaze, dropout):
     """Two steps of the JAX package's jitted epoch scan against the port's
-    epoch, with each step's draws replayed from JAX's step keys."""
+    epoch from the same key: the port splits it and draws each step's
+    dropout as JAX does, with nothing replayed."""
     jcfg, pcfg, flax_params, params, data, models, tx = epoch_setup(gaze, dropout)
     jdata = JDeviceData(j_synthetic(**EPISODES), BC_S)
     jtx = j_build_optimizer(jcfg.optimizer, jcfg.scheduler, jcfg.training, 3)
@@ -112,13 +114,8 @@ def test_epoch_matches_jax_epoch(gaze, dropout):
     perm = np.random.default_rng(5).permutation(data.n_samples)
     jstate, jmetrics = j_make_epoch_fn(jdata, jstep, 2, 4)(
         FlaxState.create(apply_fn=None, params=flax_params, tx=jtx), jnp.asarray(perm), KEY)
-    # make_epoch_fn splits its key once per step: (rng, sub) = split(rng)
-    rng, draws = KEY, []
-    for _ in range(2):
-        rng, sub = jax.random.split(rng)
-        draws.append(jax_bc_draws(jcfg, sub, 4))
     state, metrics = make_epoch_fn(data, PB.make_bc_train_step(models, pcfg), 2, 4)(
-        TrainState.create(params, tx), torch.from_numpy(perm), draws)
+        TrainState.create(params, tx), torch.from_numpy(perm), np.asarray(KEY))
     want = convert.params_from_flax(jax.tree.map(np.asarray, jstate.params), pcfg)
     for k, w in want.items():
         np.testing.assert_allclose(state.params[k].numpy(), w.numpy(), atol=2e-5, rtol=0, err_msg=k)
