@@ -15,8 +15,11 @@ Phases, each fatal on failure:
      1e-5 (near ties of the argmin, which nvcc's FMA contraction can flip);
   4. main path: make_rollout_fn on the 20 real routes tiled to 256 worlds,
      full-width bf16 policy initialized from prng_key(0), 100 ticks (warm-up
-     included), timed after a warm-up run; the kernel must launch exactly
-     ticks + 1 times in it; scores must be finite;
+     included), each world's env draws JAX's for its key of
+     split(prng_key(3), 256), drawn on the host inside the run, timed after
+     a warm-up run, with those draws' host time and share of the run beside
+     it; the kernel must launch exactly ticks + 1 times in it; scores must
+     be finite;
   5. the kernel at the main path's batch (its final state): held against
      the plain version at the same bar, then timed with CUDA events beside
      the plain version and the kernel's bound (the work of these operands'
@@ -320,12 +323,12 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def tick_draws(b: int, ticks: int = 10) -> torch.Tensor:
-    """Seeded env draws for the short rollouts that phases 6 and 11 time."""
-    from gabril_carla_tpu_torch.env.env import DRAWS_PER_STEP
+def tick_keys(b: int, seed: int = 4):
+    """The worlds' threefry keys ``split(prng_key(seed), b)`` for the
+    rollouts the phases run: one fixed key a phase."""
+    from gabril_carla_tpu_torch.utils.prng import prng_key, split
 
-    return torch.rand((ticks, b, DRAWS_PER_STEP), generator=torch.Generator(device="cuda").manual_seed(4),
-                      device="cuda")
+    return split(prng_key(seed), b)
 
 
 def synced(wall: dict, name: str, fn, ticks: int):
@@ -373,7 +376,7 @@ def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
                              analytic_gaze=timed("heat", RO.analytic_gaze),
                              confounded_overlay=timed("overlay", RO.confounded_overlay)):
         rollout = RO.make_rollout_fn(timed("policy", policy), cfg, steps=ticks, **kw)
-        rollout(spec, params, draws=tick_draws(spec.route_len.shape[0], ticks))
+        rollout(spec, params, tick_keys(spec.route_len.shape[0]))
     return wall
 
 
@@ -769,13 +772,12 @@ def heat_phase(spec, card: str) -> tuple[dict, float]:
                 bounds.append(torch.stack([heat.amin().float(), heat.amax().float()]))
             return policy(p, obs, heat)
 
-        make_rollout_fn(probe, cfg, steps=HEAT_TICKS, **kw)(
-            spec, params, torch.Generator(device="cuda").manual_seed(2))
+        make_rollout_fn(probe, cfg, steps=HEAT_TICKS, **kw)(spec, params, tick_keys(b, 2))
         rollout = make_rollout_fn(policy, cfg, steps=HEAT_TICKS, **kw)
         torch.cuda.synchronize()
         render_kernel.launches = 0
         t0 = time.perf_counter()
-        state, trace = rollout(spec, params, torch.Generator(device="cuda").manual_seed(3))
+        state, trace = rollout(spec, params, tick_keys(b, 3))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = render_kernel.launches
@@ -786,7 +788,7 @@ def heat_phase(spec, card: str) -> tuple[dict, float]:
         heat_ok = lo_hi is None or (float(lo_hi[:, 0].min()) >= 0.0 and float(lo_hi[:, 1].max()) <= 1.0)
         stages = stage_breakdown(spec, params, policy, cfg, kw)
         busy, span = profile_window(f"heat {name}", "10 ticks", lambda: make_rollout_fn(
-            policy, cfg, steps=10, **kw)(spec, params, draws=tick_draws(b)))
+            policy, cfg, steps=10, **kw)(spec, params, tick_keys(b)))
         log(f"[heat] {name}: {b} worlds x {HEAT_TICKS} ticks in {dt:.3f} s, {b * HEAT_TICKS / dt:.1f} env "
             f"steps/s; render launches {launches} (want {HEAT_TICKS + 1}); heat in "
             + ("[%.4g, %.4g]" % (float(lo_hi[:, 0].min()), float(lo_hi[:, 1].max())) if lo_hi is not None
@@ -1470,11 +1472,11 @@ def protocol_phase(card: str, tmp) -> tuple[dict, dict, float]:
     def counted_rollout(*args, **kwargs):
         roll = make_rollout_fn(*args, **kwargs)
 
-        def run(spec, params, generator=None, draws=None):
+        def run(spec, params, keys):
             before = render_kernel.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = roll(spec, params, generator=generator, draws=draws)
+            out = roll(spec, params, keys)
             torch.cuda.synchronize()
             seen["eval"].append({"launches": render_kernel.launches - before, "steps": kwargs["steps"],
                                  "worlds": int(spec.route_len.shape[0]), "s": time.perf_counter() - t0})
@@ -1619,8 +1621,8 @@ def tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
     def keep_final(*args, **kwargs):
         roll = make_rollout_fn(*args, **kwargs)
 
-        def run(spec, params, generator=None, draws=None):
-            st, trace = roll(spec, params, generator=generator, draws=draws)
+        def run(spec, params, keys):
+            st, trace = roll(spec, params, keys)
             final.update(spec=spec, state=st)
             return st, trace
         return run
@@ -2410,7 +2412,7 @@ def main() -> int:
     from gabril_carla_tpu_torch.ops.render_kernel import build, render_kernel
     from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
     from gabril_carla_tpu_torch.utils.config import default_bc_config
-    from gabril_carla_tpu_torch.utils.prng import prng_key
+    from gabril_carla_tpu_torch.utils.prng import env_draws, prng_key
 
     dev = "cuda"
     torch.backends.cudnn.allow_tf32 = False
@@ -2447,8 +2449,7 @@ def main() -> int:
 
     # 3. kernel vs plain
     spec20 = to_torch(base, dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    state40, _ = make_rollout_fn(policy, cfg, steps=COMPARE_TICKS)(spec20, params, gen)
+    state40, _ = make_rollout_fn(policy, cfg, steps=COMPARE_TICKS)(spec20, params, tick_keys(len(ids), 1))
     from gabril_carla_tpu_torch.env.env import DrivingEnv
 
     errs = [
@@ -2472,19 +2473,28 @@ def main() -> int:
         f"{m['num_residual_layers']} residual layers of {m['num_residual_hiddens']}, "
         f"z_dim {m['z_dim']}, frame stack {cfg.data['frame_stack']}, 180x320, bfloat16")
     rollout = make_rollout_fn(policy, cfg, steps=TICKS)
-    rollout(spec, params, torch.Generator(device=dev).manual_seed(2))  # warm-up run
+    rollout(spec, params, tick_keys(N_WORLDS, 2))  # warm-up run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(3)
+    keys = tick_keys(N_WORLDS, 3)
     render_kernel.launches = 0
     t0 = time.perf_counter()
-    state, trace = rollout(spec, params, gen)
+    state, trace = rollout(spec, params, keys)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = render_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] {N_WORLDS} worlds x {TICKS} ticks in {dt:.3f} s: "
         f"{N_WORLDS * TICKS / dt:.1f} env steps/s on {card}")
+    # the run's env draws, JAX's for the worlds' keys, are computed on the
+    # host before its first launch: their share of the run
+    t_draws = time.perf_counter()
+    env_draws(keys, TICKS)
+    draws_s = time.perf_counter() - t_draws
+    log(f"[main] env_draws for {N_WORLDS} worlds x {TICKS} ticks: {draws_s:.4f} s on the host, "
+        f"{100 * draws_s / dt:.2f}% of the run")
+    main_rec = {"worlds": N_WORLDS, "ticks": TICKS, "wall_s": dt, "steps_per_s": N_WORLDS * TICKS / dt,
+                "env_draws_s": draws_s, "env_draws_share": draws_s / dt, "card": card}
     log(f"[main] render launches {launches} (want {TICKS + 1}); peak memory {peak / 2**30:.2f} GiB")
     score = compute_score(spec, state)
     sc = score["score_composed"]
@@ -2512,7 +2522,7 @@ def main() -> int:
     log("[breakdown] wall ms per tick, each stage synchronised: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     profile_window("breakdown", "10 ticks", lambda: make_rollout_fn(policy, cfg, steps=10)(
-        spec, params, draws=tick_draws(N_WORLDS)))
+        spec, params, tick_keys(N_WORLDS)))
     log(f"[phases] 1-6 in {time.perf_counter() - t_all:.1f} s")
 
     # 7-9. BC training
@@ -2603,6 +2613,7 @@ def main() -> int:
         "max_abs_err": threefry["max_abs_err"], "ms": threefry["ms"], "plain_ms": threefry["plain_ms"],
         "bound_ms": threefry["bound_ms"], "bound_by": threefry["bound_by"], "library_ms": None,
         "torch_rand_ms": threefry["torch_rand_ms"], "elements": threefry["elements"]}]}))
+    print(json.dumps({"main": main_rec}))
     print(json.dumps({"train": train}))
     print(json.dumps({"gaze_train": gaze}))
     print(json.dumps({"heat_rollouts": heat}))

@@ -25,7 +25,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from ..data.tasks import TASK_TO_ROUTE
 from ..data.vendored import routes_path
@@ -35,15 +34,13 @@ from ..env.xosc import load_xosc
 from ..eval.agent import BCAgent
 from ..eval.rollout import make_rollout_fn, needs_heat
 from ..eval.stats import aggregate_scores, route_record, write_stats_json
-from ..utils.prng import env_draws, prng_key
+from ..utils.prng import prng_key
 
 
-def pair_draws(pairs, steps: int, device) -> torch.Tensor:
-    """[steps, len(pairs), 4] env draws on ``device``: each pair's column is
-    JAX's draws for a world reset on ``PRNGKey(seed * 100003 + route)``
-    (JAX cli/eval_routes.py:111), computed on the host."""
-    keys = np.stack([prng_key(s * 100003 + r) for r, s in pairs])
-    return torch.from_numpy(env_draws(keys, steps)).to(device)
+def pair_keys(pairs) -> np.ndarray:
+    """[len(pairs), 2] threefry keys: each (route, seed) pair's world is
+    reset on ``PRNGKey(seed * 100003 + route)`` (JAX cli/eval_routes.py:111)."""
+    return np.stack([prng_key(s * 100003 + r) for r, s in pairs])
 
 
 def main(argv=None, device="cuda"):
@@ -112,7 +109,7 @@ def main(argv=None, device="cuda"):
     spec_idx = np.asarray([idx_of[r] for r, _ in pairs])
     batch_spec = to_torch(spec_rows(specs, spec_idx), device)
     t0 = time.time()
-    states, trace = roll(batch_spec, agent.params, draws=pair_draws(pairs, args.steps, device))
+    states, trace = roll(batch_spec, agent.params, pair_keys(pairs))
     t_done = states.t.cpu()
     wall = time.time() - t0
     score = {k: v.cpu() for k, v in compute_score(batch_spec, states).items()}

@@ -15,7 +15,8 @@ VQ-VAE when one uses Oreo, and for each method spec its BC training and its
 closed-loop eval on the seen and unseen splits (each pair's draws JAX's
 for PRNGKey(seed * 100003 + route)). stats.json trees go under
 eval_<tag>_<split>/, and report.json is rewritten after every finished
-cell, so a rerun skips the cells already in it.
+cell, so a rerun skips the cells already in it; each seed's gaze predictor
+is kept as gaze_predictor.pt beside it, so a rerun does not train it again.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..data.dataset import BCDataset, EpisodeStore
 from ..data.gaze_stats import humanize_gaze_coords, misperceive_gaze_coords, sparsify_gaze_coords
@@ -36,13 +38,15 @@ from ..env.criteria import compute_score
 from ..env.world import load_benchmark_specs, spec_rows, to_torch
 from ..eval.rollout import make_rollout_fn, needs_heat
 from ..eval.stats import aggregate_scores, route_record, write_stats_json
+from ..ops.render_kernel import render_kernel
+from ..ops.threefry_kernel import threefry_kernel
 from ..train.bc import make_bc_policy_fn
 from ..train.device_data import DeviceData
-from ..train.gaze_predictor import make_gaze_predictor_apply
+from ..train.gaze_predictor import build_gaze_models, make_gaze_predictor_apply
 from ..train.loop import Trainer
 from ..utils.config import default_bc_config, default_gaze_config
 from .collect import collect, seed_draws
-from .eval_routes import pair_draws
+from .eval_routes import pair_keys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,7 +247,7 @@ def main(argv=None, device="cuda"):
     idx_of = {r: i for i, r in enumerate(seen + unseen)}
 
     # ---------- 1. expert data on the seen routes
-    t0 = time.time()
+    t0, k1 = time.time(), render_kernel.launches
     cache = Path(args.store_cache) if args.store_cache else None
     if cache is not None and cache.exists():
         store, expert_records = load_cache(cache)
@@ -260,7 +264,8 @@ def main(argv=None, device="cuda"):
     expert_agg = aggregate_scores(expert_records) if expert_records else {"mean": -1.0}
     dt = time.time() - t0
     print(f"[collect] {n_frames} frames over {store.n_demos} episodes in {dt:.1f} s "
-          f"({n_frames / dt:.1f} frames/s); expert mean {expert_agg['mean']:.2f}", flush=True)
+          f"({n_frames / dt:.1f} frames/s); expert mean {expert_agg['mean']:.2f}; "
+          f"K1 launches {render_kernel.launches - k1}", flush=True)
     if cache is not None and not cache.exists():
         save_cache(cache, store, expert_records)
         print(f"[collect] cached to {cache}", flush=True)
@@ -289,9 +294,9 @@ def main(argv=None, device="cuda"):
     return 0
 
 
-def train_aux(mode: str, args, train_seed: int, store, shared_dd, out: Path, device):
-    """The gaze predictor (mode "gaze") or the VQ-VAE (mode "vqvae") at
-    max(10, epochs // 2) epochs on the shared dataset: the trained Trainer."""
+def aux_config(mode: str, args, train_seed: int, out: Path):
+    """The config of the gaze predictor (mode "gaze") or the VQ-VAE (mode
+    "vqvae"): max(10, epochs // 2) epochs on the shared dataset."""
     if mode == "gaze":
         cfg = default_gaze_config()
         cfg["data"].update(batch_size=args.batch_size, task="GazePred")
@@ -305,15 +310,49 @@ def train_aux(mode: str, args, train_seed: int, store, shared_dd, out: Path, dev
                            seed=train_seed)
     cfg["scheduler"]["type"] = "none"
     cfg["logging"]["log_dir"] = str(out / "runs")
-    t0 = time.time()
+    return cfg
+
+
+def train_aux(mode: str, args, train_seed: int, store, shared_dd, out: Path, device):
+    """The trained Trainer of ``aux_config(mode, ...)``."""
+    cfg = aux_config(mode, args, train_seed, out)
+    t0, tf = time.time(), threefry_kernel.launches
     tr = Trainer(cfg, BCDataset(store, frame_stack=cfg.data["frame_stack"]), mode=mode,
                  device=device, device_data=shared_dd)
     metrics = tr.train()
     dt = time.time() - t0
     n = tr.steps_per_epoch * args.batch_size * cfg.training["epochs"]
     print(f"[train:{'gaze_predictor' if mode == 'gaze' else mode}] {dt:.1f} s, "
-          f"{n / dt:.1f} samples/s: {metrics}", flush=True)
+          f"{n / dt:.1f} samples/s, threefry launches {threefry_kernel.launches - tf}: {metrics}",
+          flush=True)
     return tr
+
+
+# the arguments a trained gaze predictor depends on: the collection, the gaze
+# variant (its mask seeded with the first --train_seed) and the predictor's run
+PREDICTOR_ARGS = ("routes_xml", "junction_traffic", "train_seeds", "collect_steps",
+                  "curvature_gaze", "human_gaze", "sparse_gaze", "misperceive_gaze",
+                  "confounded", "gp_arch", "epochs", "batch_size")
+
+
+def frozen_gaze_predictor(args, train_seed: int, store, shared_dd, out: Path, device):
+    """(apply, params) of seed ``train_seed``'s frozen gaze predictor. It is
+    read from out/gaze_predictor.pt when a run with the same
+    ``PREDICTOR_ARGS`` and mask seed saved it there, else trained and saved,
+    so a resumed run does not train it again."""
+    path = out / "gaze_predictor.pt"
+    settings = {k: getattr(args, k) for k in PREDICTOR_ARGS}
+    settings.update(train_seed=train_seed, mask_seed=args.train_seed[0])
+    if path.exists():
+        saved = torch.load(path, map_location=device)
+        if saved["settings"] == settings:
+            model, _ = build_gaze_models(aux_config("gaze", args, train_seed, out), device)
+            print(f"[resume] gaze predictor from {path}", flush=True)
+            return make_gaze_predictor_apply(model), saved["params"]
+    gtr = train_aux("gaze", args, train_seed, store, shared_dd, out, device)
+    params = gtr.state.params
+    torch.save({"settings": settings, "params": params}, path)
+    return make_gaze_predictor_apply(gtr.model), params
 
 
 def run_seed(train_seed, args, out, store, shared_dd, expert_agg, n_frames, splits, device):
@@ -338,9 +377,7 @@ def run_seed(train_seed, args, out, store, shared_dd, expert_agg, n_frames, spli
     # ---------- 1b. the frozen gaze predictor for heat-needing methods
     gp_apply, gp_params = None, None
     if any(needs_heat(method_config(ms, args, train_seed, "", out)) for ms in todo):
-        gtr = train_aux("gaze", args, train_seed, store, shared_dd, out, device)
-        gp_params, gp_apply = gtr.state.params, make_gaze_predictor_apply(gtr.model)
-        del gtr
+        gp_apply, gp_params = frozen_gaze_predictor(args, train_seed, store, shared_dd, out, device)
         gc.collect()
 
     # ---------- 1c. the VQ-VAE when a method uses Oreo
@@ -357,12 +394,13 @@ def run_seed(train_seed, args, out, store, shared_dd, expert_agg, n_frames, spli
         cfg = method_config(ms, args, train_seed, vqvae_path, out)
         trainer = Trainer(cfg, BCDataset(store, frame_stack=cfg.data["frame_stack"]), mode="bc",
                           device=device, device_data=shared_dd)
-        t0 = time.time()
+        t0, tf = time.time(), threefry_kernel.launches
         metrics = trainer.train()
         train_s = time.time() - t0
         n = trainer.steps_per_epoch * args.batch_size * args.epochs
         print(f"[train:{ms.method}] {args.epochs} epochs in {train_s:.1f} s, "
-              f"{n / train_s:.1f} samples/s: {metrics}", flush=True)
+              f"{n / train_s:.1f} samples/s, threefry launches {threefry_kernel.launches - tf}: "
+              f"{metrics}", flush=True)
 
         # heat at eval: the frozen gaze predictor when trained, else the
         # analytic scene-graph gaze
@@ -374,8 +412,8 @@ def run_seed(train_seed, args, out, store, shared_dd, expert_agg, n_frames, spli
             eval_params["gaze_predictor"] = gp_params
         results = {}
         for split, (pairs, spec) in splits.items():
-            t0 = time.time()
-            states, _ = roll(spec, eval_params, draws=pair_draws(pairs, args.eval_steps, device))
+            t0, k1 = time.time(), render_kernel.launches
+            states, _ = roll(spec, eval_params, pair_keys(pairs))
             score = {k: v.cpu() for k, v in compute_score(spec, states).items()}
             t_done = states.t.cpu()
             recs = []
@@ -388,7 +426,8 @@ def run_seed(train_seed, args, out, store, shared_dd, expert_agg, n_frames, spli
             results[split] = aggregate_scores(recs)
             print(f"[eval:{ms.spec}:{split}] mean {results[split]['mean']:.2f} ± "
                   f"{results[split]['std']:.2f} ({time.time() - t0:.1f} s, {len(pairs)} rollouts "
-                  f"of {args.eval_steps} ticks)", flush=True)
+                  f"of {args.eval_steps} ticks, K1 launches {render_kernel.launches - k1})",
+                  flush=True)
         # free this method's models and optimizer state before the next one
         trainer = roll = eval_params = None
         gc.collect()

@@ -11,8 +11,8 @@ clipped to [0, 1], steer to [-1, 1], brake binarized at > 0.8.
 ``draws`` are the step's four uniform numbers in [0, 1): the two flow gaps
 and the same-direction and opposite ambient respawn offsets, in that order
 (DRAWS_PER_STEP). The JAX package draws them from the state's PRNG key;
-here the caller owns the randomness (eval/rollout.py draws them from a
-torch.Generator, the parity tests replay JAX's).
+here the caller draws JAX's numbers for the worlds' keys on the host
+(utils/prng.py ``env_draws``, as eval/rollout.py and cli/collect.py do).
 """
 
 from __future__ import annotations

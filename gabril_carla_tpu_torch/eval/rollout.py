@@ -19,11 +19,12 @@ fps*100 = 2000 ticks (bc_agent.py:407-411), a float32 [H, W, S] frame ring
 fed to the policy like training's frame stack (the policy casts to its
 compute dtype itself), brake binarization in the codec.
 
-Randomness: each env step takes four uniforms per world (env.DRAWS_PER_STEP),
-drawn from a caller-seeded torch.Generator on the worlds' device, or given
-outright as ``draws [steps, B, 4]``. ``rollout_routes`` gives JAX's: each
-world's draws from its own key of ``split(key, n)`` (utils/prng.py; JAX
-:153), so a world's draws do not depend on how the worlds are sharded.
+Randomness: each env step takes four uniforms per world (env.DRAWS_PER_STEP).
+The rollout takes one threefry key per world, as JAX's vmapped
+``rollout(spec, params, key)`` does (JAX :129), and draws JAX's numbers for
+it on the host (utils/prng.py ``env_draws``). ``rollout_routes`` gives world
+i the key ``split(key, n)[i]`` (JAX :150-153), so a world's draws do not
+depend on how the worlds are sharded.
 With a mesh, each 'data' rank rolls its ``n / data`` worlds and every rank
 gets all ``n`` back (JAX's ``P("data")`` placement of the specs).
 """
@@ -33,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..env.env import DRAWS_PER_STEP, DrivingEnv
+from ..env.env import DrivingEnv
 from ..env.world import spec_rows, to_torch
 from ..ops.heatmap import GazeHeatmapper
 from ..ops.raster import analytic_gaze, confounded_overlay, render_frame
@@ -54,11 +55,11 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
                     gaze_predictor_apply=None, confounded: bool = False,
                     return_frames: bool = False, far_decimate: bool = False,
                     lower_window: bool = False):
-    """Build rollout(spec, params, generator=None, draws=None) -> (final
-    state, trace): trace is the ego positions [steps, B, 2], or the rendered
-    frames [steps, B, H, W] with ``return_frames``. ``rollout.steps`` is
-    ``steps``. ``far_decimate`` and
-    ``lower_window`` go to every ``render_frame`` call.
+    """Build rollout(spec, params, keys) -> (final state, trace): ``keys``
+    [B, 2] uint32 are the worlds' threefry keys (utils/prng.py), trace is
+    the ego positions [steps, B, 2], or the rendered frames [steps, B, H, W]
+    with ``return_frames``. ``rollout.steps`` is ``steps``. ``far_decimate``
+    and ``lower_window`` go to every ``render_frame`` call.
 
     policy_fn(params, obs [B, H, W, S], heat [B, H, W, S] or None) -> [B, 7]
     actions. gaze_predictor_apply(params["gaze_predictor"], obs) -> [B, H,
@@ -95,16 +96,13 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
         return heatmapper.heatmaps(coords)[..., None].repeat(1, 1, 1, s)
 
     @torch.inference_mode()
-    def rollout(spec, params, generator: torch.Generator | None = None,
-                draws: torch.Tensor | None = None):
+    def rollout(spec, params, keys):
         b = spec.route_len.shape[0]
         dev = spec.route_len.device
-        if draws is None:
-            if generator is None:
-                raise ValueError("rollout: pass a seeded torch.Generator or explicit draws")
-            draws = torch.rand((steps, b, DRAWS_PER_STEP), generator=generator, device=dev)
-        if draws.shape != (steps, b, DRAWS_PER_STEP):
-            raise ValueError(f"draws must be [{steps}, {b}, {DRAWS_PER_STEP}], got {tuple(draws.shape)}")
+        keys = np.asarray(keys, np.uint32)
+        if keys.shape != (b, 2):
+            raise ValueError(f"keys must be [{b}, 2] threefry keys, got {keys.shape}")
+        draws = torch.from_numpy(env_draws(keys, steps)).to(dev)
         state = env.reset(spec)
         frames = render(spec, state)[..., None].repeat(1, 1, 1, s)  # [B, H, W, S]
         # warm-up no-op: full brake (noop_control, autonomous_agent.py:194-206)
@@ -145,10 +143,10 @@ def rollout_routes(specs, params, rollout_fn, key, device="cuda", mesh=None):
     utils/prng.py prng_key).
 
     ``mesh`` (parallel/mesh.py): 'data' rank r rolls worlds [r * m, (r + 1)
-    * m), m = n / data, on their rows of the draws, then the final states
+    * m), m = n / data, on their keys, then the final states
     and the traces are gathered so every rank returns all n worlds."""
     n = specs.route_len.shape[0]
-    draws = env_draws(split(key, n), rollout_fn.steps)
+    keys = split(key, n)
     rows = np.arange(n)
     if mesh is not None:
         d = data_size(mesh)
@@ -157,8 +155,7 @@ def rollout_routes(specs, params, rollout_fn, key, device="cuda", mesh=None):
         m = n // d
         rows = rows[data_rank(mesh) * m:(data_rank(mesh) + 1) * m]
     spec = to_torch(spec_rows(specs, rows), device)
-    state, trace = rollout_fn(spec, to_device(params, device),
-                              draws=torch.from_numpy(draws[:, rows]).to(device))
+    state, trace = rollout_fn(spec, to_device(params, device), keys[rows])
     if mesh is None:
         return state, trace
     return all_gather_rows(state, mesh), all_gather_rows(trace, mesh, dim=1)

@@ -182,8 +182,7 @@ def test_heat_rollout_launches_and_kernel(cuda, case):
 
     spec = to_torch(load_benchmark_specs(seen_routes()[:3]), cuda)
     before = K.render_kernel.launches
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    state, _ = make_rollout_fn(probe, cfg, steps=12, **kw)(spec, params, gen)
+    state, _ = make_rollout_fn(probe, cfg, steps=12, **kw)(spec, params, split(prng_key(0), 3))
     torch.cuda.synchronize()
     assert K.render_kernel.launches == before + 13
     assert all(0.0 <= lo and hi <= 1.0 for lo, hi in seen) and (case == "confounded") == (not seen)
@@ -197,7 +196,7 @@ def test_analytic_gaze_matches_cpu(cuda, curv):
     spec, state = _real_routes(cuda)
     cfg, models, params, _ = heat_cases(cuda)["confounded"]
     state, _ = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=20)(
-        spec, params, torch.Generator(device=cuda).manual_seed(1))
+        spec, params, split(prng_key(1), spec.route_len.shape[0]))
     bad, tied, mx = analytic_card_vs_cpu(spec, state, curv)
     assert bad == 0, (bad, tied, mx)
 

@@ -20,7 +20,7 @@ check once per module; the tests read their results:
   equal to the whole one on both data paths;
 * the sharded eval: every rank's states and trace bitwise those of
   single-process rollouts of each rank's worlds at the same batch, on the
-  same rows of ``env_draws(split(key, n))``; an uneven split raises;
+  same keys, the rows of ``split(key, n)``; an uneven split raises;
 * ``dryrun_multichip(2, "cpu")``.
 """
 
@@ -46,7 +46,7 @@ from gabril_carla_tpu_torch import convert
 from gabril_carla_tpu_torch.env.world import load_benchmark_specs, spec_rows, to_torch
 from gabril_carla_tpu_torch.parallel import maybe_init_distributed
 from gabril_carla_tpu_torch.parallel.mesh import tree_leaves
-from gabril_carla_tpu_torch.utils.prng import env_draws, prng_key, split
+from gabril_carla_tpu_torch.utils.prng import prng_key, split
 from test_parallel import small_cfg
 from test_torch_common import cpu_threads
 
@@ -195,12 +195,11 @@ def test_resumed_run_equals_whole(two, device_data):
 def test_sharded_eval_matches_per_rank_rollouts(two):
     specs = load_benchmark_specs(R.EVAL_ROUTES)
     n = len(R.EVAL_ROUTES)
-    draws = env_draws(split(prng_key(R.EVAL_KEY), n), R.EVAL_TICKS)
+    keys = split(prng_key(R.EVAL_KEY), n)
     fn, params = R.eval_policy()
     states, traces = [], []
     for rows in (np.arange(0, n // 2), np.arange(n // 2, n)):  # each rank's worlds
-        st, tr = fn(to_torch(spec_rows(specs, rows), "cpu"), params,
-                    draws=torch.from_numpy(draws[:, rows]))
+        st, tr = fn(to_torch(spec_rows(specs, rows), "cpu"), params, keys[rows])
         states.append(st)
         traces.append(tr)
     want_trace = torch.cat(traces, 1)

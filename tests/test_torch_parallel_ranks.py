@@ -34,7 +34,7 @@ EVAL_ROUTES = [3100, 27494, 2416, 24211]  # seen routes: 4 worlds, 2 a rank
 EVAL_TICKS, EVAL_KEY = 20, 9
 PERM_STEPS, PERM_BS = 3, 4
 RESUME_DEMOS, RESUME_STEPS = 4, 16  # 64 samples: 8 steps an epoch at batch 8
-SHARD_KEY, SHARD_STEPS = 11, 3  # tests/test_torch_train_draws.py: the sharded epoch's key, its steps
+SHARD_KEY, SHARD_STEPS = 11, 3  # tests/test_torch_train_draws_trainers.py: the sharded epoch's key, its steps
 
 
 def spawn(job, world: int, tmp) -> list[dict]:

@@ -7,7 +7,8 @@ seed 401) and three shapes; the raw hash at rotations that carry across the
 word; and ``env_draws`` against tests/test_torch_common.py's
 ``rollout_draws`` (JAX's own rollout chain) for 3 worlds x 50 ticks, with
 a world's draws independent of the worlds beside it. The CLIs' draws
-(eval_routes.pair_draws, collect.seed_draws) are JAX's for their keys.
+(eval_routes.pair_keys with env_draws, collect.seed_draws) are JAX's for
+their keys.
 """
 
 import jax
@@ -84,7 +85,8 @@ def test_env_draws_match_rollout_draws():
 def test_cli_draws_are_jax_keys():
     pairs = [(27494, 401), (3100, 400)]
     keys = jnp.stack([jax.random.PRNGKey(s * 100003 + r) for r, s in pairs])
-    bitwise(eval_routes.pair_draws(pairs, 20, "cpu").numpy(), rollout_draws(keys, 20))
+    bitwise(eval_routes.pair_keys(pairs), np.asarray(keys))
+    bitwise(prng.env_draws(eval_routes.pair_keys(pairs), 20), rollout_draws(keys, 20))
     seeds = [200, 3100 + 201 * 1000]
     keys = jnp.stack([jax.random.PRNGKey(s) for s in seeds])
     bitwise(collect.seed_draws(seeds, 20, "cpu").numpy(), rollout_draws(keys, 20))

@@ -356,3 +356,37 @@ def test_cache_round_trip(run):
     assert expert == pytest.approx(np.mean([r["scores"]["score_composed"] for r in records]))
     # collected gaze: the road point is valid on most frames (no dropout yet)
     assert (store.flat_gazes[:, 0] >= 0).mean() > 0.5
+
+
+def test_gaze_predictor_saved_and_reused(tmp_path, monkeypatch):
+    """A seed's frozen gaze predictor is saved beside its report.json; a
+    rerun with the same settings reads it back (the same params and heat,
+    bitwise, and no training), and one with other settings trains anew."""
+    from types import SimpleNamespace
+
+    from gabril_carla_tpu_torch.train.gaze_predictor import build_gaze_models, init_gaze_params
+    from gabril_carla_tpu_torch.utils.prng import prng_key
+
+    trained = []
+
+    def train_aux(mode, args, seed, store, shared_dd, out, device):
+        trained.append((mode, seed, args.epochs))
+        cfg = fb.aux_config(mode, args, seed, out)
+        model, _ = build_gaze_models(cfg, device)
+        params = init_gaze_params(model, cfg, prng_key(seed + args.epochs))
+        return SimpleNamespace(model=model, state=SimpleNamespace(params=params))
+
+    monkeypatch.setattr(fb, "train_aux", train_aux)
+    args = fb.build_parser().parse_args(["--gp_arch", "unet", "--train_seed", "42", "43"])
+    obs = torch.from_numpy(np.random.default_rng(0).random((1, 180, 320, 2), np.float32))
+    apply, params = fb.frozen_gaze_predictor(args, 43, None, None, tmp_path, "cpu")
+    assert trained == [("gaze", 43, 40)] and (tmp_path / "gaze_predictor.pt").exists()
+    apply2, params2 = fb.frozen_gaze_predictor(args, 43, None, None, tmp_path, "cpu")
+    assert len(trained) == 1 and params2.keys() == params.keys()
+    assert all(torch.equal(params2[k], v) for k, v in params.items())
+    with torch.no_grad():
+        assert torch.equal(apply2(params2, obs), apply(params, obs))
+    args.epochs = 30
+    _, params3 = fb.frozen_gaze_predictor(args, 43, None, None, tmp_path, "cpu")
+    assert trained[1:] == [("gaze", 43, 30)]
+    assert not all(torch.equal(params3[k], v) for k, v in params.items())

@@ -206,18 +206,18 @@ def test_lower_window_rollout_matches_default():
     cfg["gaze"]["method"] = "None"
     cfg["model"].update(num_hiddens=8, embedding_dim=8, z_dim=16, num_residual_hiddens=4)
     models = build_bc_models(cfg, device="cpu")
-    from gabril_carla_tpu_torch.utils.prng import prng_key
+    from gabril_carla_tpu_torch.utils.prng import prng_key, split
 
     params = init_bc_params(models, cfg, prng_key(0))
     spec = to_torch(stack_specs([port_build({"id": i, "town": "T", "waypoints": w, "scenarios": [],
                                              "weather": [0, 0, 0, 90]})
                                  for i, w in enumerate((LOOP, STRAIGHT))]), "cpu")
-    draws = torch.rand((4, 2, 4), generator=torch.Generator().manual_seed(1))
+    keys = split(prng_key(1), 2)
     frames = {}
     for lw in (False, True):
         fn = make_rollout_fn(make_bc_policy_fn(models, cfg), cfg, steps=4, return_frames=True,
                              lower_window=lw)
-        st, frames[lw] = fn(spec, params, draws=draws)
+        st, frames[lw] = fn(spec, params, keys)
     cam = TR._pallas_inputs(spec, st, *TR._camera_basis(st.ego.pos, st.ego.yaw),
                             torch.zeros(2, 1, 8), TR.weather_now(spec, st))[0]
     assert cam[0, 17] >= 44 and cam[0, 14] <= 128.5  # the gate engaged on the loop

@@ -34,11 +34,17 @@ from gabril_carla_tpu_torch.eval import rollout as PRO
 from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
-from gabril_carla_tpu_torch.utils.prng import prng_key
-from test_torch_common import port_spec, rollout_draws
+from gabril_carla_tpu_torch.utils.prng import prng_key, split
+from test_torch_common import cpu_threads, port_spec
 
 TICKS = 30
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with cpu_threads(1):
+        yield
 
 
 def small_cfg(port=False):
@@ -70,15 +76,34 @@ def port_policy(params):
         jax.tree.map(np.asarray, params), cfg)
 
 
-def test_closed_loop_matches_jax():
-    specs, keys, params, ref, trace = jax_run()
+@functools.lru_cache(maxsize=None)
+def port_keyed_run():
+    """The port's rollout of jax_run's worlds called with its keys (JAX's
+    keys: its draws): (final state, trace, K1 launches in the call)."""
+    specs, keys, params, _, _ = jax_run()
     cfg, policy, state_dict = port_policy(params)
     fn = PRO.make_rollout_fn(policy, cfg, steps=TICKS)
-    draws = torch.from_numpy(rollout_draws(keys, TICKS))
-    spec_p = port_spec(jax.tree.map(np.asarray, specs))
     before = render_kernel.launches
-    st, got = fn(spec_p, state_dict, draws=draws)
-    assert render_kernel.launches == before  # CPU tensors take the plain version
+    st, got = fn(port_spec(jax.tree.map(np.asarray, specs)), state_dict, np.asarray(keys))
+    return st, got, render_kernel.launches - before
+
+
+@functools.lru_cache(maxsize=None)
+def port_routes_run():
+    """rollout_routes over the same three routes on ``prng_key(5)``."""
+    from gabril_carla_tpu_torch.env.world import load_benchmark_specs as port_specs
+
+    cfg, policy, state_dict = port_policy(jax_run()[2])
+    fn = PRO.make_rollout_fn(policy, cfg, steps=TICKS)
+    return PRO.rollout_routes(port_specs(seen_routes()[:3]), state_dict, fn, prng_key(5),
+                              device="cpu")
+
+
+def test_closed_loop_matches_jax():
+    specs, keys, params, ref, trace = jax_run()
+    spec_p = port_spec(jax.tree.map(np.asarray, specs))
+    st, got, launches = port_keyed_run()
+    assert launches == 0  # CPU tensors take the plain version
     got = got.numpy().transpose(1, 0, 2)  # [B, T, 2] as JAX's trace
     assert np.abs(got - trace).max() < 1e-3
     assert np.abs(got[:, -1] - got[:, 0]).max() > 0.5  # the worlds moved
@@ -91,19 +116,26 @@ def test_closed_loop_matches_jax():
 def test_rollout_routes_matches_jax():
     """rollout_routes(key=PRNGKey(5)) splits the key per world as JAX's
     rollout_routes does (JAX eval/rollout.py:153): the JAX run above,
-    without replaying its draws."""
-    from gabril_carla_tpu_torch.env.world import load_benchmark_specs as port_specs
+    without replaying its draws. The rollout called with those keys,
+    ``split(prng_key(5), 3)``, is rollout_routes bitwise, in float32 on the
+    CPU: the final state and the trace."""
+    from gabril_carla_tpu_torch.parallel.mesh import tree_leaves
 
-    specs, _, params, ref, trace = jax_run()
-    cfg, policy, state_dict = port_policy(params)
-    fn = PRO.make_rollout_fn(policy, cfg, steps=TICKS)
-    st, got = PRO.rollout_routes(port_specs(seen_routes()[:3]), state_dict, fn, prng_key(5),
-                                 device="cpu")
+    specs, keys, params, ref, trace = jax_run()
+    st, got = port_routes_run()
     assert np.abs(got.numpy().transpose(1, 0, 2) - trace).max() < 1e-3
     want = jax.vmap(compute_score)(specs, ref)
     have = port_score(port_spec(jax.tree.map(np.asarray, specs)), st)
     for k in ("score_route", "score_penalty", "score_composed"):
         np.testing.assert_allclose(have[k].numpy(), np.asarray(want[k]), atol=1e-3, err_msg=k)
+    assert port_policy(params)[0].training["compute_dtype"] == "float32"
+    np.testing.assert_array_equal(np.asarray(keys), split(prng_key(5), 3))
+    keyed_st, keyed_trace, _ = port_keyed_run()
+    assert torch.equal(keyed_trace, got)
+    leaves, want_leaves = tree_leaves(keyed_st), tree_leaves(st)
+    assert len(leaves) == len(want_leaves) > 20
+    for g, w in zip(leaves, want_leaves):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_rollout_routes_entry_and_warmup():
@@ -124,11 +156,12 @@ def test_rollout_checks_draws():
     fn = PRO.make_rollout_fn(policy, cfg, steps=3)
     spec = port_spec(jax.tree.map(np.asarray, jax_run()[0]))
     with pytest.raises(ValueError):
-        fn(spec, state_dict)  # neither a generator nor draws
+        fn(spec, state_dict, split(prng_key(0), 2))  # 2 keys for 3 worlds
     with pytest.raises(ValueError):
-        fn(spec, state_dict, draws=torch.zeros(2, 3, 4))
+        fn(spec, state_dict, np.zeros((3, 4), np.uint32))  # not threefry keys
     with pytest.raises(ValueError):  # the confounded two-pass checks them too
-        PRO.make_rollout_fn(policy, cfg, steps=3, confounded=True)(spec, state_dict)
+        PRO.make_rollout_fn(policy, cfg, steps=3, confounded=True)(spec, state_dict,
+                                                                   prng_key(0)[None])
 
 
 def test_port_runs_without_jax():

@@ -37,14 +37,20 @@ from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.train.gaze_predictor import build_gaze_models, make_gaze_predictor_apply
 from gabril_carla_tpu_torch.utils.config import default_bc_config as port_default_bc_config
-from gabril_carla_tpu_torch.utils.prng import prng_key
-from test_torch_common import port_spec, rollout_draws
+from gabril_carla_tpu_torch.utils.prng import prng_key, split
+from test_torch_common import cpu_threads, port_spec
 
 TICKS = 20
 CASES = {"visarl_analytic": ("ViSaRL", dict(use_analytic_gaze=True)),
          "mask_predictor": ("Mask", {}),
          "confounded": ("None", dict(confounded=True))}
 GP = dict(embedding_dim=4, num_hiddens=8, num_residual_layers=1, num_residual_hiddens=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with cpu_threads(1):
+        yield
 
 
 def small_cfg(method, port=False):
@@ -97,7 +103,7 @@ def check_against_jax(case):
     fn, sd = port_setup(case, params)
     spec_p = port_spec(jax.tree.map(np.asarray, specs))
     before = render_kernel.launches
-    st, got = fn(spec_p, sd, draws=torch.from_numpy(rollout_draws(keys, TICKS).copy()))
+    st, got = fn(spec_p, sd, np.asarray(keys))  # JAX's keys: its draws
     assert render_kernel.launches == before  # CPU tensors take the plain version
     got = got.numpy().transpose(1, 0, 2)  # [B, T, 2] as JAX's trace
     assert np.abs(got - trace).max() < 1e-3
@@ -160,10 +166,11 @@ def test_predicted_heat_is_clamped():
     def run_with(value):
         fake = lambda p, obs: torch.full(obs.shape[:3] + (1,), value)
         fn = PRO.make_rollout_fn(probe_policy, cfg, steps=25, gaze_predictor_apply=fake)
-        return fn(spec, params, generator=torch.Generator().manual_seed(0))[1].numpy()
+        return fn(spec, params, split(prng_key(0), 1))[1].numpy()
 
-    np.testing.assert_array_equal(run_with(7.5), run_with(1.0))
-    assert not np.array_equal(run_with(0.5), run_with(1.0))
+    at_one = run_with(1.0)
+    np.testing.assert_array_equal(run_with(7.5), at_one)
+    assert not np.array_equal(run_with(0.5), at_one)
 
 
 def test_confounded_ring_buffer_keeps_historical_overlays():
@@ -179,7 +186,7 @@ def test_confounded_ring_buffer_keeps_historical_overlays():
         return act
 
     fn = PRO.make_rollout_fn(probe_policy, cfg, steps=3, confounded=True)
-    fn(spec_straight(), params, generator=torch.Generator().manual_seed(0))
+    fn(spec_straight(), params, split(prng_key(0), 1))
     assert len(seen) == 6  # two passes a tick
     for t in range(3):
         (raw, a1), (ov, _) = seen[2 * t], seen[2 * t + 1]

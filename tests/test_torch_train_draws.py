@@ -1,19 +1,15 @@
 """Port parity for the training draws: utils/prng.py's jax.random ports,
 flax's keys, ops/threefry_kernel.py, and the keyed init, step draws and
-revive of train/bc.py, train/gaze_predictor.py and train/vqvae.py, up to
-whole Trainers of the two packages from one seed.
+revive of train/bc.py, train/gaze_predictor.py and train/vqvae.py
+(whole Trainers of the two packages from one seed are in
+tests/test_torch_train_draws_trainers.py).
 
 Bars: bits, uniforms, Bernoulli masks, randint picks and the folded keys
 bitwise; normals and truncated normals within 1e-6 relative (XLA's float32
 ``erf_inv`` takes its ``log1p`` from XLA, the port from numpy: measured at
 most 2.4e-7); orthogonal and lecun-normal kernels within 1e-6 (the QR's
 float32 rounding); every init within 1e-5 of JAX's through ``convert``;
-each step's GMD, IGMD and Oreo draws and the revive's picks bitwise; two
-epochs of a Trainer within test_torch_trainer.py::test_epoch_matches_jax_epoch's
-bars (params atol 2e-5, metrics rtol 1e-5). The VQ-VAE Trainer runs two
-steps an epoch: Adam divides a gradient by its own magnitude plus 1e-8,
-so float32 noise in small gradients grows with the steps (at three steps
-an epoch its decoder.up2 kernel reached 2.5e-5).
+each step's GMD, IGMD and Oreo draws and the revive's picks bitwise.
 """
 
 from __future__ import annotations
@@ -31,20 +27,14 @@ import torch
 import gabril_carla_tpu.train.bc as JB
 import gabril_carla_tpu.train.gaze_predictor as JG
 import gabril_carla_tpu.train.vqvae as JV
-from gabril_carla_tpu.data import BCDataset as JDataset
-from gabril_carla_tpu.data import synthetic_episodes as j_synthetic
-from gabril_carla_tpu.parallel.mesh import make_mesh
-from gabril_carla_tpu.train.loop import Trainer as JTrainer
 from gabril_carla_tpu_torch import convert
-from gabril_carla_tpu_torch.data.dataset import BCDataset, synthetic_episodes
 from gabril_carla_tpu_torch.ops import threefry_kernel as TK
 from gabril_carla_tpu_torch.train import bc as PB
 from gabril_carla_tpu_torch.train import gaze_predictor as PG
 from gabril_carla_tpu_torch.train import vqvae as PV
-from gabril_carla_tpu_torch.train.loop import Trainer
 from gabril_carla_tpu_torch.train.optim import build_optimizer
 from gabril_carla_tpu_torch.utils import prng
-from test_torch_common import BC_A, BC_H, BC_P, BC_S, BC_W, bc_cfgs, cpu_threads, jax_bc_draws
+from test_torch_common import bc_cfgs, cpu_threads, jax_bc_draws
 from test_torch_gaze_predictor import gaze_cfgs
 from test_torch_vqvae import cfgs as vq_cfgs
 
@@ -297,93 +287,3 @@ def test_revive_draws_are_jax_draws():
         np.testing.assert_allclose(d["jitter"].numpy(),
                                    np.asarray(jax.random.normal(jax.random.fold_in(jk, 1), (512, 64))),
                                    rtol=NORMAL_RTOL, atol=0)
-
-
-# --- whole Trainers from one seed, nothing injected ------------------------------
-
-EPISODES = dict(n_demos=2, steps=6, img_hw=(BC_H, BC_W), max_points=BC_P, action_dim=BC_A, seed=3)
-
-
-def run_both(jcfg, pcfg, episodes, mode, tmp_path, frame_stack):
-    for cfg in (jcfg, pcfg):
-        cfg.set_path("logging.log_dir", str(tmp_path))
-    # one JAX device, as the port's one process (conftest gives JAX eight)
-    jt = JTrainer(jcfg, JDataset(j_synthetic(**episodes), frame_stack, use_native=False), mode=mode,
-                  mesh=make_mesh(jax.devices()[:1]))
-    jm = jt.train()
-    pt = Trainer(pcfg, BCDataset(synthetic_episodes(**episodes), frame_stack), mode=mode, device="cpu")
-    pm = pt.train()
-    return jt, jm, pt, pm
-
-
-def assert_trainers_agree(jt, jm, pt, pm, to_port):
-    want = to_port(jax.tree.map(np.asarray, jt.state.params))
-    assert set(want) == set(pt.state.params)
-    for k, w in want.items():
-        np.testing.assert_allclose(pt.state.params[k].numpy(), w.numpy(), atol=2e-5, rtol=0, err_msg=k)
-    assert set(jm) == set(pm)
-    for k, v in jm.items():
-        np.testing.assert_allclose(pm[k], float(v), rtol=1e-5, err_msg=k)
-
-
-@pytest.mark.parametrize("device_data", [True, False])
-@pytest.mark.parametrize("dropout", ["None", "GMD", "IGMD", "Oreo"])
-def test_trainer_from_seed_matches_jax(tmp_path, dropout, device_data):
-    """The fault closed: a JAX Trainer and a port Trainer of training.seed
-    3 (init, shuffles, step keys, dropout draws all their own) agree after
-    two epochs, device-resident or on host batches."""
-    over = {"training.epochs": 2, "training.seed": 3, "training.device_data": device_data}
-    jcfg, pcfg = bc_cfgs("None", dropout, **over)
-    jt, jm, pt, pm = run_both(jcfg, pcfg, EPISODES, "bc", tmp_path, BC_S)
-    assert pt.device_mode == device_data
-    assert_trainers_agree(jt, jm, pt, pm, lambda p: convert.params_from_flax(p, pcfg))
-    np.testing.assert_array_equal(pt._step_key, np.asarray(jt._step_key))
-
-
-def test_vqvae_trainer_with_revive_matches_jax(tmp_path):
-    """Two VQ-VAE epochs, each ending in a revive from fold_in(PRNGKey(77),
-    epoch): the same dead codes revived, the same parameters."""
-    jcfg, pcfg = vq_cfgs()
-    for cfg in (jcfg, pcfg):
-        cfg.set_path("training.epochs", 2)
-        cfg.set_path("training.seed", 1)
-        cfg.set_path("dropout.num_embeddings", 64)
-    episodes = dict(n_demos=2, steps=4, img_hw=(180, 320), max_points=3)
-    revived = []
-    revive = PV.make_revive_dead_codes
-
-    def counting(model, cfg):
-        fn = revive(model, cfg)
-
-        def wrapped(params, batch, key):
-            out = fn(params, batch, key)
-            revived.append(int(out[1]))
-            return out
-        return wrapped
-
-    with pytest.MonkeyPatch.context() as mp:
-        import gabril_carla_tpu_torch.train.loop as loop
-
-        mp.setattr(loop, "make_revive_dead_codes", counting)
-        jt, jm, pt, pm = run_both(jcfg, pcfg, episodes, "vqvae", tmp_path, 2)
-    assert revived[0] > 0 and pm["dead_codes"] == jm["dead_codes"] == revived[-1]
-    assert_trainers_agree(jt, jm, pt, pm, lambda p: convert.vqvae_params_from_flax(p, pcfg))
-
-
-# --- the sharded epochs' keys at 2 gloo ranks --------------------------------------
-
-
-def test_sharded_step_keys_are_jax_rank_keys(tmp_path):
-    """make_sharded_epoch_fn on 2 gloo ranks: rank r steps with JAX's
-    fold_in(key, r) chain, split once a step (device_data.py:161, :165)."""
-    from test_torch_parallel_ranks import SHARD_KEY, SHARD_STEPS, sharded_keys, spawn
-
-    outs = spawn(sharded_keys, 2, tmp_path)
-    for r, out in enumerate(outs):
-        assert out["rank"] == r
-        k = jax.random.fold_in(jax.random.PRNGKey(SHARD_KEY), r)
-        want = []
-        for _ in range(SHARD_STEPS):
-            k, sub = jax.random.split(k)
-            want.append(np.asarray(sub))
-        bitwise(out["keys"], np.stack(want))

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import gabril_carla_tpu.env.world as JW
 import gabril_carla_tpu.train.bc as JB
@@ -43,7 +42,7 @@ from gabril_carla_tpu_torch.env.xosc import load_xosc
 from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
 from gabril_carla_tpu_torch.train.checkpoint import save_manifest, save_params
 from test_torch_collect import jax_draws
-from test_torch_common import cpu_threads, rollout_draws
+from test_torch_common import cpu_threads
 from test_torch_expert import JIT_TOL
 from test_torch_rollout import small_cfg
 
@@ -148,12 +147,11 @@ def constant_policy_params():
     return cfg, params
 
 
-def xosc_draws(xosc_id):
-    def draws(pairs, steps, device):
-        keys = jnp.stack([jax.random.PRNGKey(s * 100003 + r) for r, s in pairs])
+def xosc_keys(xosc_id):
+    def keys(pairs):
         assert all(r == xosc_id for r, _ in pairs)
-        return torch.from_numpy(np.array(rollout_draws(keys, steps))).to(device)
-    return draws
+        return np.asarray(jnp.stack([jax.random.PRNGKey(s * 100003 + r) for r, s in pairs]))
+    return keys
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,7 +169,7 @@ def eval_runs(tmp):
     assert jax_eval_routes.main(["--checkpoint", str(root / "jax_ckpt"), "--out",
                                  str(root / "jax")] + args) == 0
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(eval_routes, "pair_draws", xosc_draws(load_xosc(path)["id"]))
+        mp.setattr(eval_routes, "pair_keys", xosc_keys(load_xosc(path)["id"]))
         before = render_kernel.launches
         assert eval_routes.main(["--checkpoint", str(root / "port_ckpt"), "--out",
                                  str(root / "port"), "--video"] + args, device="cpu") == 0
