@@ -27,12 +27,16 @@ Phases, each fatal on failure:
   6. where a tick's time goes: each stage's wall time, and a profiler
      window's device busy share and heaviest kernels;
   7. the BC train step at bench_train.py's configuration (batch 2000, Reg,
-     bf16, full width), its batch resident on the card: one warm-up step,
-     then TRAIN_STEPS timed with CUDA events; samples/s, step ms, peak
-     memory, the FLOPs of a step (FlopCounterMode) and their share of the
-     bf16 peak, the stage split and a profiler window; fatal unless the
-     loss and metrics are finite, loss_reg > 0 and every parameter group
-     moved;
+     bf16, full width), its batch resident on the card, measured by the
+     entry point as a user runs it, ``python -m
+     gabril_carla_tpu_torch.bench_train`` in a subprocess at its defaults
+     (a warm-up step, then TRAIN_STEPS timed): samples/s, step ms, the
+     FLOPs of a step (FlopCounterMode) and mfu_pct from its last line, fatal
+     unless that line carries bench_train.py's exact keys, a finite positive
+     value, mode "bs2000_bf16_Reg_<card>" and 0 < mfu_pct <= 100; then in
+     process, PROBE_STEPS steps from the same state, fatal unless the loss
+     and metrics are finite, loss_reg > 0 and every parameter group moved,
+     the stage split, a profiler window and the step under cudnn.benchmark;
   8. every gaze x dropout method on the card: loss and gradients at the CPU
      parity tests' configuration (24x48, hiddens 16, batch 4, float32,
      draws given) against the same code on the CPU, within LOSS_RTOL and
@@ -149,11 +153,27 @@ Phases, each fatal on failure:
      BC steps at batch 2000 with IGMD (2 launches a step) and a full-width
      IGMD Trainer epoch; card Trainers against CPU Trainers of one seed at
      the CPU tests' widths for GMD, IGMD and Oreo (every step's draws
-     bitwise, the loss within LOSS_RTOL).
+     bitwise, the loss within LOSS_RTOL);
+ 23. the rendered closed loop's entry point (bench_train's is phase 7's):
+     ``python -m gabril_carla_tpu_torch.bench`` at its defaults (bench.py's
+     loop, 1024 worlds x 400 ticks) in a subprocess, its last line with
+     bench.py's exact keys, a finite positive value, mode "real_routes" and
+     K1 launched once a tick of the timed run; bench's main in process at
+     TAG_WORLDS x TAG_STEPS with --skip_policy and --skip_render (tagged
+     modes, K1 0 launches in the last) and at BENCH_WORLDS x
+     BENCH_PROFILE_STEPS with --profile (the device's busy share); then its
+     loop in process at BENCH_WORLDS x SHARE_STEPS, the full run and both
+     skip variants alternated SHARE_REPS times, the stage shares by
+     subtraction from the median tick times (bench.py:118-124), each
+     reported only where the spread of the runs' shares is smaller; the
+     full loop at SMALL_WORLDS x SMALL_STEPS, median of SHARE_REPS runs;
+     K1 held to its plain version on the final state of the last full run
+     at BENCH_WORLDS and timed there beside its bound and the plain
+     version.
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
-the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's and
-22's numbers, the card line, and last
+the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's, 22's
+and 23's numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -172,6 +192,10 @@ import time
 
 import torch
 
+from gabril_carla_tpu_torch.bench_train import (BATCH as TRAIN_BATCH, ITERS as TRAIN_STEPS, PEAK_BF16,
+                                                bench_batch, bench_train_cfg)
+from gabril_carla_tpu_torch.utils.profiling import card_line, device_kernels
+
 N_WORLDS = 256
 TICKS = 100
 COMPARE_TICKS = 40
@@ -179,11 +203,11 @@ CHUNK = 8  # worlds per plain-version call (its [B, 87, 320, 160] distance tenso
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM f32 outside the tensor cores
 BAR_ABS, FLIP_PX = 1e-5, 4
-TRAIN_BATCH, TRAIN_STEPS = 2000, 30  # bench_train.py's batch and timed steps
-PEAK_BF16_S = 989e12  # H100 SXM dense bf16
+PEAK_BF16_S = PEAK_BF16["NVIDIA H100 80GB HBM3"]  # H100 SXM dense bf16
 # bench_train.py's step counted from the shapes: the encoder's convs and the
 # pre-actor are 1.80 GFLOP a sample forward, x3 for forward and backward
 FLOPS_COUNTED = 1.80e9 * 3 * TRAIN_BATCH
+PROBE_STEPS = 3  # phase 7: in-process steps before the moved-group check (the first has lr 0)
 LOSS_RTOL, GRAD_FRAC = 1e-4, 1e-3  # phases 8 and 13: card against CPU
 GAZE_BATCH, GAZE_STEPS = 256, 20  # phase 10: the gaze config's batch, timed steps
 HEAT_TICKS = 50  # phase 11
@@ -202,11 +226,6 @@ KINK_NOISE = (1e-9, 1e-6)  # phase 13: relative input noise, below and at float3
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def off_pixels(kernel_out, plain_out):
@@ -383,7 +402,6 @@ def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
 def profile_window(tag, what, fn, top=8):
     """Run ``fn`` under torch.profiler; log the device's busy share of the
     wall time and the heaviest kernels; return (busy ms, wall ms)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -392,45 +410,44 @@ def profile_window(tag, what, fn, top=8):
         fn()
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in kernels.values()) / 1e3
+    kernels = device_kernels(prof)
+    busy = sum(ms for _, ms in kernels.values())
     log(f"[{tag}] profiled {what}: device busy {busy:.3f} ms of {span:.3f} ms wall "
         f"({100 * busy / span:.1f}%), {sum(n for n, _ in kernels.values())} kernel launches")
-    for name, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"[{tag}] {us / 1e3:10.3f} ms {n:6d}x {name[:90]}")
+    for name, (n, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}] {ms:10.3f} ms {n:6d}x {name[:90]}")
     return busy, span
 
 
 # --- BC training (phases 7-9) -------------------------------------------------
 
 
-def bench_train_cfg(batch_size: int = TRAIN_BATCH):
-    """bench_train.py's configuration: the defaults (full width, 180x320
-    grayscale, frame stack 2, bf16) with Reg, mask_sigma 30."""
-    from gabril_carla_tpu_torch.utils.config import default_bc_config
-
-    cfg = default_bc_config()
-    cfg["data"]["batch_size"] = batch_size
-    cfg["gaze"].update(method="Reg", mask_sigma=30.0)
-    cfg["training"]["compute_dtype"] = "bfloat16"
-    return cfg
+# the last lines of the measuring entry points (phases 7 and 23)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode"}  # bench.py:230-243
+TRAIN_KEYS = BENCH_KEYS | {"mfu_pct", "flops_per_step", "step_ms"}  # bench_train.py:110-117
 
 
-def bench_batch(cfg, batch_size: int, device, seed: int = 0) -> dict:
-    """A batch made as bench_train.py:76-81 makes it, from numpy ``seed``."""
-    import numpy as np
+def run_entry(module: str, *args: str) -> tuple[dict, dict, float]:
+    """``python -m gabril_carla_tpu_torch.<module> args`` in a subprocess:
+    (its last stdout line, its bench_stats line from stderr or {}, wall s).
+    Echoes its stderr; fatal unless it exits 0."""
+    from pathlib import Path
 
-    s, p = cfg.data["frame_stack"], cfg.gaze["max_points"]
-    h, w = cfg.data["img_height"], cfg.data["img_width"]
-    host = np.random.default_rng(seed)
-    batch = {"obs_seq": host.integers(0, 255, (batch_size, s, h, w, 1), dtype=np.uint8),
-             "gaze_seq": host.random((batch_size, s, p * 2), dtype=np.float32),
-             "actions": host.random((batch_size, cfg.data["action_dim"]), dtype=np.float32)}
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"gabril_carla_tpu_torch.{module}", *args],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    stats = {}
+    for line in out.stderr.splitlines():
+        if line.startswith('{"bench_stats"'):
+            stats = json.loads(line)["bench_stats"]
+        else:
+            log(f"[bench] {line}")
+    if out.returncode != 0 or not out.stdout.strip():
+        raise SystemExit(f"chip_smoke: {module} {' '.join(args)} exited {out.returncode}")
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[bench] {module} {' '.join(args)} in {wall:.1f} s: {json.dumps(last)}")
+    return last, stats, wall
 
 
 def narrow_cfg(gaze: str, dropout: str):
@@ -509,32 +526,38 @@ def stage_split(models, cfg, state, batch, key, reps=3) -> dict:
 
 
 def train_phase(card: str) -> dict:
-    """Phase 7: the train step at bench_train.py's configuration."""
-    from torch.utils.flop_counter import FlopCounterMode
+    """Phase 7: the train step at bench_train.py's configuration, timed by
+    the entry point, then probed in process."""
+    from gabril_carla_tpu_torch.bench_train import KEY, bench_train_state
+    from gabril_carla_tpu_torch.train.bc import make_bc_train_step
 
-    from gabril_carla_tpu_torch.train.bc import init_bc_state, make_bc_train_step
-    from gabril_carla_tpu_torch.train.optim import build_optimizer
-    from gabril_carla_tpu_torch.utils.prng import prng_key
+    torch.cuda.empty_cache()  # leave the card's memory to the subprocess
+    line, _, wall = run_entry("bench_train")
+    mfu = line.get("mfu_pct")
+    if not (set(line) == TRAIN_KEYS and line["metric"] == "train_samples_per_sec_per_chip"
+            and math.isfinite(line["value"]) and line["value"] > 0
+            and line["mode"].startswith(f"bs{TRAIN_BATCH}_bf16_Reg_") and mfu is not None and 0 < mfu <= 100):
+        raise SystemExit(f"chip_smoke: bench_train at its defaults gave {line}")
+    step_ms, flops = line["step_ms"], line["flops_per_step"]
+    log(f"[train] bench_train.py's step (batch {TRAIN_BATCH}, Reg, bf16, full width) through the entry "
+        f"point: {TRAIN_STEPS} steps {step_ms:.2f} ms each, {line['value']:.1f} samples/s, mfu {mfu}%; "
+        f"FLOPs per step {flops / 1e12:.3f} T (FlopCounterMode; counted from the shapes "
+        f"{FLOPS_COUNTED / 1e12:.2f} T); {wall:.1f} s in all; on {card}")
 
     cfg = bench_train_cfg()
-    tx = build_optimizer(cfg.optimizer, cfg.scheduler, cfg.training, steps_per_epoch=100)
-    models, state0 = init_bc_state(cfg, prng_key(0), tx)
+    models, state0 = bench_train_state(cfg, "cuda")
     step = make_bc_train_step(models, cfg)
     batch = bench_batch(cfg, TRAIN_BATCH, "cuda")
-    gen = prng_key(1)  # Reg draws nothing; the step takes its key all the same
+    gen = KEY  # Reg draws nothing; the step takes its key all the same
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, _ = step(state0, batch, gen)  # warm-up
+    state, _ = step(state0, batch, gen)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(PROBE_STEPS - 1):
         state, metrics = step(state, batch, gen)
-    end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     vals = {k: float(v) for k, v in metrics.items()}
     groups = sorted({k.split(".")[0] for k in state.params})
@@ -542,22 +565,13 @@ def train_phase(card: str) -> dict:
                     for k in state.params if k.startswith(g + ".")) for g in groups}
     finite = all(math.isfinite(v) for v in vals.values()) and all(
         bool(torch.isfinite(v).all()) for v in state.params.values())
-    log(f"[train] bench_train.py's step (batch {TRAIN_BATCH}, Reg, bf16, full width): first step "
-        f"{first_ms:.1f} ms; {TRAIN_STEPS} steps {step_ms:.3f} ms each, "
-        f"{TRAIN_BATCH / step_ms * 1e3:.1f} samples/s; peak memory {peak / 2**30:.2f} GiB; on {card}")
-    log(f"[train] metrics after {state.step} steps: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
+    log(f"[train] in process: first step {first_ms:.1f} ms; peak memory {peak / 2**30:.2f} GiB; metrics after "
+        f"{state.step} steps: " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
         + "; parameter groups moved: " + ", ".join(f"{g} {m}" for g, m in moved.items()))
     if not finite or vals["loss_reg"] <= 0 or not all(moved.values()):
         raise SystemExit("chip_smoke: the train step gave non-finite results, loss_reg <= 0 or "
                          "left a parameter group unchanged")
 
-    with FlopCounterMode(display=False) as counter:
-        step(state, batch, gen)
-    flops = counter.get_total_flops()
-    bound_ms = flops / PEAK_BF16_S * 1e3
-    log(f"[train] FLOPs per step {flops / 1e12:.3f} T (FlopCounterMode; counted from the shapes "
-        f"{FLOPS_COUNTED / 1e12:.2f} T); at the {PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16 peak "
-        f"{bound_ms:.2f} ms, so the step runs at {100 * bound_ms / step_ms:.1f}% of it")
     stages = stage_split(models, cfg, state, batch, gen)
     log("[train] stage split, wall ms each synchronised: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
@@ -565,23 +579,17 @@ def train_phase(card: str) -> dict:
 
     torch.backends.cudnn.benchmark = True
     try:
-        for _ in range(2):
-            step(state, batch, gen)
-        start.record()
-        for _ in range(10):
-            step(state, batch, gen)
-        end.record()
-        torch.cuda.synchronize()
-        bench_ms = start.elapsed_time(end) / 10
+        step(state, batch, gen)  # cudnn picks its algorithms here and in time_ms's first call
+        bench_ms = time_ms(lambda: step(state, batch, gen), 10)
     finally:
         torch.backends.cudnn.benchmark = False
     log(f"[train] with cudnn.benchmark on: {bench_ms:.3f} ms a step "
         f"({TRAIN_BATCH / bench_ms * 1e3:.1f} samples/s)")
-    return {"samples_per_s": TRAIN_BATCH / step_ms * 1e3, "step_ms": step_ms, "first_step_ms": first_ms,
-            "flops_per_step": flops, "flops_counted": FLOPS_COUNTED,
-            "bf16_peak_share": bound_ms / step_ms, "peak_mem_gib": peak / 2**30,
-            "device_busy_share": busy / span, "stages_ms": stages,
-            "cudnn_benchmark_step_ms": bench_ms, "card": card}
+    return {"bench_train": line, "bench_train_wall_s": wall, "samples_per_s": line["value"],
+            "step_ms": step_ms, "first_step_ms": first_ms, "flops_per_step": flops,
+            "flops_counted": FLOPS_COUNTED, "bf16_peak_share": mfu / 100, "peak_mem_gib": peak / 2**30,
+            "device_busy_share": busy / span, "stages_ms": stages, "cudnn_benchmark_step_ms": bench_ms,
+            "card": card}
 
 
 def methods_phase():
@@ -2397,6 +2405,160 @@ def threefry_phase(card: str, tmp) -> dict:
             "trainer_launches": trainer_launches, "card_vs_cpu_trainer": gaps, "card": card}
 
 
+# phase 23: the measuring entry point gabril_carla_tpu_torch.bench (bench.py)
+BENCH_WORLDS, BENCH_STEPS = 1024, 400  # bench.py's defaults
+SHARE_STEPS, SHARE_REPS = 100, 3  # in-process runs at BENCH_WORLDS for the stage shares
+SMALL_WORLDS, SMALL_STEPS = 256, 100  # the rate at the main path's batch, in the same process
+TAG_WORLDS, TAG_STEPS = 64, 10  # bench's main with each skip flag and with --profile
+BENCH_PROFILE_STEPS = 10  # the profiled run at BENCH_WORLDS
+VARIANTS = {"full": (False, False), "skip_policy": (True, False), "skip_render": (False, True)}
+
+
+def bench_line_ok(line: dict, mode: str) -> bool:
+    return (set(line) == BENCH_KEYS and line["metric"] == "rendered_env_steps_per_sec_per_chip"
+            and math.isfinite(line["value"]) and line["value"] > 0 and line["mode"] == mode)
+
+
+def bench_main(*args: str) -> tuple[dict, dict]:
+    """gabril_carla_tpu_torch.bench's main in this process: (its last
+    stdout line, its bench_stats). Echoes its stderr; fatal unless it
+    returns 0."""
+    import contextlib
+    import io
+
+    from gabril_carla_tpu_torch import bench as B
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = B.main(list(args))
+    stats = {}
+    for line in err.getvalue().splitlines():
+        if line.startswith('{"bench_stats"'):
+            stats = json.loads(line)["bench_stats"]
+        else:
+            log(f"[bench] {line}")
+    if rc != 0 or not out.getvalue().strip():
+        raise SystemExit(f"chip_smoke: bench's main {' '.join(args)} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), stats
+
+
+def spread_share(full: list, skip: list):
+    """The share of a tick that a stage takes, by subtraction: from the
+    median tick times, and the spread of the per-repetition shares (each
+    repetition ran its variants back to back). None where the spread is
+    not smaller than the share: the runs do not resolve it."""
+    import statistics
+
+    share = 1.0 - statistics.median(skip) / statistics.median(full)
+    each = [1.0 - s / f for f, s in zip(full, skip)]
+    spread = max(each) - min(each)
+    return (share if spread < abs(share) else None), spread
+
+
+def bench_phase(card: str, tmp, policy, cfg, params) -> dict:
+    """Phase 23: bench at its defaults as a user runs it; its main with
+    each skip flag and with --profile; then bench's loop in process with
+    the main path's policy (bench's: gaze None, bf16, full width,
+    prng_key(0)), alternating the variants for the stage shares at
+    BENCH_WORLDS, K1 held to its plain version on the final state of the
+    last full run there and timed there."""
+    import statistics
+    from pathlib import Path
+    from unittest import mock
+
+    from gabril_carla_tpu_torch import bench as B
+    from gabril_carla_tpu_torch.ops.render_kernel import render_kernel
+    from gabril_carla_tpu_torch.utils.prng import prng_key, split
+
+    torch.cuda.empty_cache()  # leave the card's memory to the subprocess
+    line, stats, wall = run_entry("bench")
+    if not (bench_line_ok(line, "real_routes") and stats.get("render_launches") == BENCH_STEPS):
+        raise SystemExit(f"chip_smoke: bench at its defaults gave {line} with {stats.get('render_launches')} "
+                         f"render launches (want {BENCH_STEPS})")
+    rec = {"bench": line, "bench_stats": stats, "bench_wall_s": wall}
+
+    for tag, want in (("skip_policy", TAG_STEPS), ("skip_render", 0)):
+        line, stats = bench_main(str(TAG_WORLDS), str(TAG_STEPS), f"--{tag}")
+        if not (bench_line_ok(line, f"real_routes+{tag}") and stats.get("render_launches") == want):
+            raise SystemExit(f"chip_smoke: bench --{tag} gave {line}, {stats.get('render_launches')} "
+                             f"render launches (want {want})")
+    _, stats = bench_main(str(BENCH_WORLDS), str(BENCH_PROFILE_STEPS), "--profile",
+                          str(Path(tmp) / "bench_profile"))
+    rec["profile"] = stats["profile"]
+    log(f"[bench] device busy {100 * stats['profile']['busy_ms'] / stats['profile']['wall_ms']:.1f}% of "
+        f"a {BENCH_PROFILE_STEPS}-tick run at {BENCH_WORLDS} worlds")
+
+    # in process: the variants alternated, SHARE_REPS runs each; the final
+    # state of each run recorded for K1's check
+    final = {}
+
+    class Env(B.DrivingEnv):
+        def step(self, *args):
+            final["state"] = super().step(*args)
+            return final["state"]
+
+    def timed(run, spec, keys):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(spec, params, keys)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    spec = B.bench_worlds(BENCH_WORLDS, False, "cuda")
+    keys = split(prng_key(0), BENCH_WORLDS)
+    with mock.patch.object(B, "DrivingEnv", Env):
+        runs = {v: B.make_bench_run(policy, cfg, SHARE_STEPS, *flags) for v, flags in VARIANTS.items()}
+    for v, flags in VARIANTS.items():
+        B.make_bench_run(policy, cfg, 2, *flags)(spec, params, keys)  # warm-up
+    tick_ms = {v: [] for v in VARIANTS}
+    for _ in range(SHARE_REPS):
+        for v, run in runs.items():
+            tick_ms[v].append(timed(run, spec, keys) * 1e3 / SHARE_STEPS)
+            if v == "full":
+                state = final["state"]
+    shares, spreads = {}, {}
+    for stage, v in (("policy", "skip_policy"), ("render", "skip_render")):
+        shares[stage], spreads[stage] = spread_share(tick_ms["full"], tick_ms[v])
+    if None not in shares.values():
+        shares["env step and the rest"] = 1.0 - shares["policy"] - shares["render"]
+    med = {v: statistics.median(t) for v, t in tick_ms.items()}
+    log(f"[bench] {BENCH_WORLDS} worlds x {SHARE_STEPS} ticks, {SHARE_REPS} runs of each variant alternated, "
+        "wall ms a tick: " + "; ".join(f"{v} " + ", ".join(f"{t:.3f}" for t in ts) for v, ts in tick_ms.items())
+        + "; stage shares of the median by subtraction: "
+        + ", ".join(f"{k} " + ("not resolved" if shares[k] is None else f"{100 * shares[k]:.1f}%")
+                    + (f" (spread {100 * spreads[k]:.1f} points)" if k in spreads else "") for k in shares) + f"; on {card}")
+    rec.update(share_worlds=BENCH_WORLDS, share_steps=SHARE_STEPS, tick_ms=tick_ms, median_tick_ms=med,
+               stage_shares=shares, stage_share_spreads=spreads,
+               steps_per_s_in_process=BENCH_WORLDS * 1e3 / med["full"])
+
+    # the rate at the main path's batch, full variant only
+    spec_small = B.bench_worlds(SMALL_WORLDS, False, "cuda")
+    keys_small = split(prng_key(0), SMALL_WORLDS)
+    run = B.make_bench_run(policy, cfg, SMALL_STEPS)
+    B.make_bench_run(policy, cfg, 2)(spec_small, params, keys_small)  # warm-up
+    small = [timed(run, spec_small, keys_small) for _ in range(SHARE_REPS)]
+    rate = SMALL_WORLDS * SMALL_STEPS / statistics.median(small)
+    log(f"[bench] {SMALL_WORLDS} worlds x {SMALL_STEPS} ticks in process: runs "
+        + ", ".join(f"{t:.3f}" for t in small) + f" s, median {rate:.1f} env steps/s; at {BENCH_WORLDS} "
+        f"worlds {rec['steps_per_s_in_process']:.1f}; on {card}")
+    rec[f"steps_per_s_{SMALL_WORLDS}x{SMALL_STEPS}"] = rate
+    rec[f"wall_s_{SMALL_WORLDS}x{SMALL_STEPS}"] = small
+
+    # K1 on the final state of the last full run at BENCH_WORLDS
+    ops = operands(spec, state)
+    err = kernel_vs_plain(f"bench's {BENCH_WORLDS} worlds after {SHARE_STEPS} ticks", ops)
+    k_ms = time_ms(lambda: render_kernel(*ops), 50)
+    p_ms = time_ms(lambda: plain_chunked(ops), 2)
+    b_ms, b_by, full_ms = bound(ops)
+    log(f"[time] render kernel at {BENCH_WORLDS} worlds: {k_ms:.4f} ms; plain version {p_ms:.3f} ms; "
+        f"bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f}% of the bound); full-loop bound "
+        f"{full_ms:.4f} ms; on {card}")
+    rec["k1_at_bench_worlds"] = {"worlds": BENCH_WORLDS, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "bound_full_loop_ms": full_ms, "max_abs_err": err}
+    rec["card"] = card
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2593,16 +2755,24 @@ def main() -> int:
         t_phase = time.perf_counter()
         threefry = threefry_phase(card, Path(tmp) / "threefry")
         log(f"[phases] 22 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 23. the measuring entry points
+        t_phase = time.perf_counter()
+        bench = bench_phase(card, tmp, policy, cfg, params)
+        max_err = max(max_err, bench["k1_at_bench_worlds"]["max_abs_err"])
+        log(f"[phases] 23 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
                "eval_routes": eval_launches, "collect": collect_launches, **protocol_launches,
-               **tools_launches, "sharded eval": dist_launches, **human_launches}
+               **tools_launches, "sharded eval": dist_launches, **human_launches,
+               "bench": bench["bench_stats"]["render_launches"]}
     print(json.dumps({"kernels": [{
         "name": "render", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/render.cu",
         "replaces": "gabril_carla_tpu/ops/pallas_raster.py:88", "launches": launches,
         "launches_by_path": by_path, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None}, {
+        "bound_ms": b_ms, "bound_by": b_by, "bound_full_loop_ms": full_ms, "library_ms": None,
+        "at_bench_worlds": bench["k1_at_bench_worlds"]}, {
         "name": "threefry", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/threefry.cu",
         "replaces": "gabril_carla_tpu/train/bc.py:222",
         "replaces_note": "no TPU kernel: jax.random's threefry, which XLA generated on the device",
@@ -2626,6 +2796,7 @@ def main() -> int:
     print(json.dumps({"host_batches": host}))
     print(json.dumps({"human": human}))
     print(json.dumps({"threefry": threefry}))
+    print(json.dumps({"bench": bench}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Profiling hooks (port of gabril_carla_tpu/utils/profiling.py): per-stage
 wall timers, a torch.profiler trace in place of jax.profiler's, and the
-reference's sim/wall ratio.
+reference's sim/wall ratio; beside them, the card's name and power limit
+and a trace's device kernels, which the measuring entry points print.
 
 A stage around device work measures the device only when it ends in a
 synchronize; the Trainer's epoch stage ends in one (its metrics' copy to
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -68,6 +70,24 @@ def profile_trace(log_dir: str, enabled: bool = True):
     finally:
         prof.stop()
         prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def device_kernels(prof) -> dict:
+    """{kernel name: (launches, device ms)} of a finished torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def sim_wall_ratio(sim_seconds: float, wall_seconds: float) -> float:

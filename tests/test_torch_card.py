@@ -25,19 +25,23 @@ plain one and the sharded eval bitwise rollout_routes without a mesh; the
 human loop's core launching the kernel once a tick and replayed bitwise
 through collect; the native gather bitwise the numpy loop on the card
 machine's host; the threefry kernel bitwise its plain version and numpy's
-threefry, once a launch a draw of a train step.
+threefry, once a launch a draw of a train step; the bench entry point
+launching the kernel once a tick.
 """
 
 import itertools
+import json
+import math
 
 import pytest
 import torch
 
 from chip_smoke import (EXPERT_TOL, FLIP_PX, GRAD_FRAC, LOSS_RTOL, _crossing_scene, _crowded,
-                        _mid_route, _tight_loop, analytic_card_vs_cpu, bench_batch, bench_train_cfg,
-                        card_vs_cpu, expert_card_vs_cpu, gaze_agrees, gaze_card_vs_cpu, heat_cases,
-                        off_pixels, operands, run_resume_check, single_route, vqvae_agrees,
-                        vqvae_card_vs_cpu)
+                        _mid_route, _tight_loop, analytic_card_vs_cpu, card_vs_cpu, expert_card_vs_cpu,
+                        gaze_agrees, gaze_card_vs_cpu, heat_cases, off_pixels, operands,
+                        run_resume_check, single_route, vqvae_agrees, vqvae_card_vs_cpu)
+from gabril_carla_tpu_torch import bench
+from gabril_carla_tpu_torch.bench_train import bench_batch, bench_train_cfg
 from gabril_carla_tpu_torch.data.tasks import seen_routes
 from gabril_carla_tpu_torch.env.env import DrivingEnv
 from gabril_carla_tpu_torch.env.criteria import compute_score
@@ -158,6 +162,19 @@ def test_bench_config_train_steps(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values()) and float(metrics["loss_reg"]) > 0
     moved = [k for k in state.params if not torch.equal(state.params[k], state0.params[k])]
     assert len(moved) == len(state.params), set(state.params) - set(moved)
+
+
+def test_bench_entry_point_on_card(cuda, capsys):
+    """gabril_carla_tpu_torch.bench at 64 worlds x 10 ticks: the render
+    kernel launches once a tick of the timed run, and the last line is
+    bench.py's with a finite rate."""
+    assert bench.main(["64", "10"]) == 0
+    out, err = capsys.readouterr()
+    line = json.loads(out.strip().splitlines()[-1])
+    stats = json.loads(next(ln for ln in err.splitlines() if ln.startswith('{"bench_stats"')))
+    assert stats["bench_stats"]["render_launches"] == 10
+    assert set(line) == {"metric", "value", "unit", "vs_baseline", "mode"} and line["mode"] == "real_routes"
+    assert math.isfinite(line["value"]) and line["value"] > 0
 
 
 @pytest.mark.parametrize("arch", ["autoencoder", "unet"])
