@@ -31,18 +31,18 @@ from test_torch_common import KEY, assert_grads_close, bc_batch, he_params, jax_
 METHODS = ["Mask", "ViSaRL", "AGIL"]
 
 
-def full_size_cfgs(gaze: str):
+def full_size_cfgs(gaze: str, dtype: str = "float32"):
     """(JAX config, port config): default_bc_config() with ``gaze``, no
-    dropout, float32."""
+    dropout, in ``dtype``."""
     cfgs = []
     for make in (default_bc_config, port_default):
         cfg = make()
         cfg["gaze"]["method"] = gaze
         cfg["dropout"]["method"] = "None"
-        cfg["training"]["compute_dtype"] = "float32"
+        cfg["training"]["compute_dtype"] = dtype
         cfgs.append(cfg)
     assert (cfgs[0].data["img_height"], cfgs[0].data["img_width"]) == (180, 320)
-    assert cfgs[0].model["num_hiddens"] == 128
+    assert cfgs[0].model["num_hiddens"] == 128 and cfgs[0].model["z_dim"] == 256
     return tuple(cfgs)
 
 
