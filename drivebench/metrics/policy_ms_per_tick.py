@@ -1,0 +1,10 @@
+"""Device ms a tick of the kernels launched inside the harness's
+``drivebench.policy`` span (drivers/rollout.py Taps), over the traced
+ticks."""
+
+
+def read(r):
+    s = r.trace.span_s.get("policy")
+    if r.rate_metric != "env_steps_per_s" or not s:
+        return None
+    return 1e3 * s / r.trace.units
