@@ -24,8 +24,9 @@ Phases, each fatal on failure:
      the plain version at the same bar, then timed with CUDA events beside
      the plain version and the kernel's bound (the work of these operands'
      row sets, and the full-loop count beside it);
-  6. where a tick's time goes: each stage's wall time, and a profiler
-     window's device busy share and heaviest kernels;
+  6. where a tick's time goes: a profiler window over 10 ticks, its
+     device busy share and heaviest kernels, and each port span's stream
+     ms a tick (utils/profiling.py span_summary);
   7. the BC train step at bench_train.py's configuration (batch 2000, Reg,
      bf16, full width), its batch resident on the card, measured by the
      entry point as a user runs it, ``python -m
@@ -36,7 +37,8 @@ Phases, each fatal on failure:
      value, mode "bs2000_bf16_Reg_<card>" and 0 < mfu_pct <= 100; then in
      process, PROBE_STEPS steps from the same state, fatal unless the loss
      and metrics are finite, loss_reg > 0 and every parameter group moved,
-     the stage split, a profiler window and the step under cudnn.benchmark;
+     a profiler window with each train span's stream ms a step, and the
+     step under cudnn.benchmark;
   8. every gaze x dropout method on the card: loss and gradients at the CPU
      parity tests' configuration (24x48, hiddens 16, batch 4, float32,
      draws given) against the same code on the CPU, within LOSS_RTOL and
@@ -52,7 +54,7 @@ Phases, each fatal on failure:
      the throttle's bias at THROTTLE_BIAS: Mask with a frozen AutoEncoder
      predictor, GMD with analytic gaze, and the confounded two-pass (gaze
      None); run once untimed (heat bounds recorded), once timed; steps/s,
-     each stage's wall ms and a profiler window over 10 ticks; fatal unless
+     a profiler window over 10 ticks with each span's stream ms; fatal unless
      the render kernel launched ticks + 1 times, the heat lies in [0, 1],
      the scores are finite, the median world moved over MOVED_M and some
      world scored, and the kernel matches its plain version at the final
@@ -115,7 +117,9 @@ Phases, each fatal on failure:
  19. multi-GPU on torch.distributed: the card's machine has one card, so
      NCCL at world size 1 (a one-rank group through a file rendezvous): the
      all-reduced full-width BC step bitwise the plain step, the all-reduce's
-     and both steps' times; the sharded eval (rollout_routes with a mesh) on
+     and both steps' times, and a profiler window over DIST_PROFILE_STEPS
+     grouped steps with each train span's stream ms a step (train.allreduce
+     among them); the sharded eval (rollout_routes with a mesh) on
      the 20 routes, DIST_TICKS ticks, its final states and trace bitwise
      those without a mesh from the same key, K1 launched ticks + 1 times and
      held to its plain version at the final state; dryrun_multichip(1,
@@ -129,7 +133,9 @@ Phases, each fatal on failure:
      gather's median ms and a batch's copy to the card; then the BC Trainer
      at bench_train.py's configuration with training.device_data false, one
      epoch (2 steps) a run, two runs with each gather in turns: samples/s,
-     StageTimer's data and step ms;
+     StageTimer's data and step ms; then one more run in a profiler window,
+     each span's stream ms a Trainer step (StageTimer's trainer.<stage>
+     spans and the train step's);
      fatal unless the batches are equal and the losses finite;
  21. human driving and the tools: HumanLoop's core (start, tick, save) on
      route HUMAN_ROUTE from seed HUMAN_SEED, one world, the scripted
@@ -161,7 +167,8 @@ Phases, each fatal on failure:
      K1 launched once a tick of the timed run; bench's main in process at
      TAG_WORLDS x TAG_STEPS with --skip_policy and --skip_render (tagged
      modes, K1 0 launches in the last) and at BENCH_WORLDS x
-     BENCH_PROFILE_STEPS with --profile (the device's busy share); then its
+     BENCH_PROFILE_STEPS with --profile (the eval rollout's busy share, its
+     spans and the device's idle by span, printed by bench); then its
      loop in process at BENCH_WORLDS x SHARE_STEPS, the full run and both
      skip variants alternated SHARE_REPS times, the stage shares by
      subtraction from the median tick times (bench.py:118-124), each
@@ -363,49 +370,34 @@ def synced(wall: dict, name: str, fn, ticks: int):
     return run
 
 
-def stage_breakdown(spec, params, policy, cfg, kw, ticks=10) -> dict:
-    """Where a tick's time goes: make_rollout_fn's own loop over ``ticks``
-    ticks, the functions it calls wrapped so that each stage is synchronised
-    around it: render (operand prep and K1; the reset's frame is spread over
-    the ticks), heat (the frozen predictor, or analytic gaze and its splat),
-    policy (both passes of the confounded two-pass), overlay, env step.
-    Returns wall ms per tick; a stage that the path does not run reads 0."""
-    from unittest import mock
+def span_stages(tag: str, unit: str = "rollout.tick") -> dict:
+    """Stream ms a ``unit`` (a tick or a train step) of each span the last
+    profile_window kept (utils/profiling.py span_summary: the card's stream
+    time between each span's CUDA events), logged with the launch counters;
+    the unit's own self time is what no stage span covers."""
+    from gabril_carla_tpu_torch.utils.profiling import span_summary
 
-    from gabril_carla_tpu_torch.env.env import DrivingEnv
-    from gabril_carla_tpu_torch.eval import rollout as RO
-    from gabril_carla_tpu_torch.ops.heatmap import GazeHeatmapper
-
-    wall = dict.fromkeys(("render", "heat", "policy", "overlay", "env step"), 0.0)
-
-    def timed(name, fn):
-        return synced(wall, name, fn, ticks)
-
-    class Env(DrivingEnv):
-        step = timed("env step", DrivingEnv.step)
-
-    class Heatmapper(GazeHeatmapper):
-        heatmaps = timed("heat", GazeHeatmapper.heatmaps)
-
-    kw = dict(kw)
-    if kw.get("gaze_predictor_apply") is not None:
-        kw["gaze_predictor_apply"] = timed("heat", kw["gaze_predictor_apply"])
-    with mock.patch.multiple(RO, DrivingEnv=Env, GazeHeatmapper=Heatmapper,
-                             render_frame=timed("render", RO.render_frame),
-                             analytic_gaze=timed("heat", RO.analytic_gaze),
-                             confounded_overlay=timed("overlay", RO.confounded_overlay)):
-        rollout = RO.make_rollout_fn(timed("policy", policy), cfg, steps=ticks, **kw)
-        rollout(spec, params, tick_keys(spec.route_len.shape[0]))
-    return wall
+    summary = span_summary()
+    spans = summary["spans"]
+    n = spans[unit]["count"]
+    out = {name: sp["stream_ms"] / n for name, sp in spans.items()}
+    out[f"{unit} self"] = spans[unit]["stream_self_ms"] / n
+    log(f"[{tag}] stream ms a {unit} by span over {n}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items()) + f"; counters {summary['counters']}")
+    return out
 
 
 def profile_window(tag, what, fn, top=8):
     """Run ``fn`` under torch.profiler; log the device's busy share of the
-    wall time and the heaviest kernels; return (busy ms, wall ms)."""
+    wall time and the heaviest kernels; return (busy ms, wall ms). The
+    spans ``fn`` opens make a fresh record (span_stages reads it)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from gabril_carla_tpu_torch.utils.profiling import reset_spans
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reset_spans()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -499,32 +491,6 @@ def card_vs_cpu(gaze: str, dropout: str):
             max(gap(g_card[k].cpu(), g_cpu[k]) for k in g_cpu))
 
 
-def stage_split(models, cfg, state, batch, key, reps=3) -> dict:
-    """Wall ms of the step's stages, each synchronised: heat prep, forward
-    and loss (without the heat prep it contains), backward, optimizer."""
-    from gabril_carla_tpu_torch.train.bc import bc_loss_fn
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    wall = dict.fromkeys(("heat prep", "forward and loss", "backward", "optimizer"), 0.0)
-    for _ in range(reps):
-        _, t_heat = timed(lambda: models.heatmapper.prepare_for_bc(
-            batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
-            grayscale=cfg.model["grayscale"]))
-        live = {k: v.detach().requires_grad_() for k, v in state.params.items()}
-        (loss, _), t_fwd = timed(lambda: bc_loss_fn(live, models, cfg, batch, key))
-        grads, t_bwd = timed(lambda: torch.autograd.grad(loss, list(live.values())))
-        _, t_opt = timed(lambda: state.apply_gradients(dict(zip(live, grads))))
-        for k, t in zip(wall, (t_heat, t_fwd - t_heat, t_bwd, t_opt)):
-            wall[k] += t / reps
-    return wall
-
-
 def train_phase(card: str) -> dict:
     """Phase 7: the train step at bench_train.py's configuration, timed by
     the entry point, then probed in process."""
@@ -572,10 +538,8 @@ def train_phase(card: str) -> dict:
         raise SystemExit("chip_smoke: the train step gave non-finite results, loss_reg <= 0 or "
                          "left a parameter group unchanged")
 
-    stages = stage_split(models, cfg, state, batch, gen)
-    log("[train] stage split, wall ms each synchronised: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     busy, span = profile_window("train", "3 steps", lambda: [step(state, batch, gen) for _ in range(3)])
+    stages = span_stages("train", "train.step")
 
     torch.backends.cudnn.benchmark = True
     try:
@@ -588,7 +552,7 @@ def train_phase(card: str) -> dict:
     return {"bench_train": line, "bench_train_wall_s": wall, "samples_per_s": line["value"],
             "step_ms": step_ms, "first_step_ms": first_ms, "flops_per_step": flops,
             "flops_counted": FLOPS_COUNTED, "bf16_peak_share": mfu / 100, "peak_mem_gib": peak / 2**30,
-            "device_busy_share": busy / span, "stages_ms": stages, "cudnn_benchmark_step_ms": bench_ms,
+            "device_busy_share": busy / span, "span_stream_ms": stages, "cudnn_benchmark_step_ms": bench_ms,
             "card": card}
 
 
@@ -794,17 +758,15 @@ def heat_phase(spec, card: str) -> tuple[dict, float]:
         drove = float(moved.median()) > MOVED_M and bool((sc > 0).any())
         lo_hi = torch.stack(bounds).cpu() if bounds else None
         heat_ok = lo_hi is None or (float(lo_hi[:, 0].min()) >= 0.0 and float(lo_hi[:, 1].max()) <= 1.0)
-        stages = stage_breakdown(spec, params, policy, cfg, kw)
         busy, span = profile_window(f"heat {name}", "10 ticks", lambda: make_rollout_fn(
             policy, cfg, steps=10, **kw)(spec, params, tick_keys(b)))
+        stages = span_stages(f"heat {name}")
         log(f"[heat] {name}: {b} worlds x {HEAT_TICKS} ticks in {dt:.3f} s, {b * HEAT_TICKS / dt:.1f} env "
             f"steps/s; render launches {launches} (want {HEAT_TICKS + 1}); heat in "
             + ("[%.4g, %.4g]" % (float(lo_hi[:, 0].min()), float(lo_hi[:, 1].max())) if lo_hi is not None
                else "(no heat: gaze None)")
             + f"; moved median {float(moved.median()):.3f} m, max {float(moved.max()):.3f} m; "
             f"score_composed mean {sc.mean().item():.4f}, > 0 in {int((sc > 0).sum())} worlds; on {card}")
-        log(f"[heat] {name}: wall ms per tick, each stage synchronised: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
         if launches != HEAT_TICKS + 1 or not heat_ok or not torch.isfinite(sc).all() \
                 or not torch.isfinite(trace).all() or not drove:
             raise SystemExit(f"chip_smoke: heat rollout {name}: {launches} render launches (want "
@@ -814,7 +776,7 @@ def heat_phase(spec, card: str) -> tuple[dict, float]:
                                                operands(spec, state)))
         out[name] = {"steps_per_s": b * HEAT_TICKS / dt, "wall_s": dt, "launches": launches,
                      "score_mean": sc.mean().item(), "worlds_scored": int((sc > 0).sum()),
-                     "moved_median_m": float(moved.median()), "stages_ms": stages, "ticks": HEAT_TICKS,
+                     "moved_median_m": float(moved.median()), "span_stream_ms": stages, "ticks": HEAT_TICKS,
                      "device_busy_share": busy / span}
     return out, max_err
 
@@ -1765,6 +1727,7 @@ def tools_phase(card: str, episodes, tmp) -> tuple[dict, dict, float]:
 
 DIST_BATCH = 64  # phase 19: the all-reduced step's batch (full width, bf16, gaze None)
 DIST_TICKS, DIST_KEY = 40, 19  # phase 19: the sharded eval's ticks and key on the 20 routes
+DIST_PROFILE_STEPS = 3  # phase 19: grouped steps in its profiler window
 DRAWS_SIZES = ((20, 1600), (120, 900))  # phase 19: env_draws of one eval split, the collection
 # the wall times of those stages in the real-size protocol on the card
 # (PERF.md section 5): a split's eval and the collection; env_draws must stay
@@ -1840,6 +1803,9 @@ def allreduce_step_check(mesh, batch_size: int = DIST_BATCH) -> dict:
     ar_ms = time_ms(lambda: pmean((grads, metrics), group), 20)
     step_ms = time_ms(lambda: plain(state, batch, None), 5)
     grouped_ms = time_ms(lambda: grouped(state, batch, None), 5)
+    profile_window("distributed", f"{DIST_PROFILE_STEPS} grouped steps",
+                   lambda: [grouped(state, batch, None) for _ in range(DIST_PROFILE_STEPS)])
+    stages = span_stages("distributed", "train.step")
     log(f"[distributed] BC step at batch {batch_size} (full width, bf16): grouped step bitwise the "
         f"plain one {equal} (plain twice: {control_ok}); one all-reduce of {floats} float32 "
         f"({4 * floats / 2**20:.2f} MiB) {ar_ms:.4f} ms at world size {dist.get_world_size()}; step "
@@ -1847,7 +1813,8 @@ def allreduce_step_check(mesh, batch_size: int = DIST_BATCH) -> dict:
     if not (control_ok and equal):
         raise SystemExit("chip_smoke: the all-reduced step differs from the plain one at world size 1")
     return {"batch": batch_size, "bitwise": equal, "bucket_floats": floats, "allreduce_ms": ar_ms,
-            "step_ms": step_ms, "grouped_step_ms": grouped_ms}
+            "step_ms": step_ms, "grouped_step_ms": grouped_ms,
+            "allreduce_stream_ms": stages["train.allreduce"]}
 
 
 def sharded_eval_check(mesh, policy, cfg, params, specs, ticks: int, key_seed: int = DIST_KEY) -> dict:
@@ -2051,6 +2018,12 @@ def host_batch_phase(card: str, tmp) -> dict:
         if trainer.device_mode or not all(math.isfinite(v) for v in last.values()):
             raise SystemExit(f"chip_smoke: the host-batch Trainer ({name}) gave a non-finite loss")
     out["trainer"] = runs
+    cfg = bench_train_cfg()
+    cfg["training"].update(epochs=1, device_data=False)
+    cfg["logging"]["log_dir"] = f"{tmp}/host_profiled"
+    trainer = Trainer(cfg, BCDataset(store, 2), mode="bc")
+    profile_window("host", "a Trainer epoch", trainer.train)
+    out["trainer_spans"] = span_stages("host", "trainer.step")
     return out
 
 
@@ -2486,7 +2459,7 @@ def bench_phase(card: str, tmp, policy, cfg, params) -> dict:
                           str(Path(tmp) / "bench_profile"))
     rec["profile"] = stats["profile"]
     log(f"[bench] device busy {100 * stats['profile']['busy_ms'] / stats['profile']['wall_ms']:.1f}% of "
-        f"a {BENCH_PROFILE_STEPS}-tick run at {BENCH_WORLDS} worlds")
+        f"a {BENCH_PROFILE_STEPS}-tick eval rollout at {BENCH_WORLDS} worlds")
 
     # in process: the variants alternated, SHARE_REPS runs each; the final
     # state of each run recorded for K1's check
@@ -2680,11 +2653,9 @@ def main() -> int:
     log("[time] no single PyTorch call computes this function: library_ms is null")
 
     # 6. where the time goes
-    stages = stage_breakdown(spec, params, policy, cfg, {})
-    log("[breakdown] wall ms per tick, each stage synchronised: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     profile_window("breakdown", "10 ticks", lambda: make_rollout_fn(policy, cfg, steps=10)(
         spec, params, tick_keys(N_WORLDS)))
+    span_stages("breakdown")
     log(f"[phases] 1-6 in {time.perf_counter() - t_all:.1f} s")
 
     # 7-9. BC training

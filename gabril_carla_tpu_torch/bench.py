@@ -23,9 +23,13 @@ synchronize (bench.py:225-227). Its last stdout line is bench.py's JSON:
 (bench.py:118-124: shares by subtraction). stderr gets the card's name and
 power limit, the render kernel's launches in the timed run (it must launch
 once a tick), the run's CUDA-event time, the host time of its env draws,
-peak memory, and a JSON line of those numbers. ``--profile DIR`` traces one
-more untimed run with utils/profiling.py ``profile_trace`` and prints the
-device's busy share and its heaviest kernels.
+peak memory, and a JSON line of those numbers. ``--profile DIR`` traces,
+with utils/profiling.py ``profile_trace``, one untimed call of the eval
+path users run, eval/rollout.py ``make_rollout_fn`` (its reset frame and
+warm-up no-ops, without ``--skip_*``), on the same worlds, policy and ticks
+after a warm-up call of its own, and prints the device's busy share, its
+heaviest kernels, ``span_summary()`` of the call's ``rollout.*`` spans and
+``idle_by_span`` of its trace. The loop above carries no spans.
 
 Without a card it exits non-zero and prints no JSON unless ``--device
 cpu`` is given; the CPU run takes the render's plain version and is for
@@ -48,12 +52,13 @@ import torch
 from .data.tasks import seen_routes, unseen_routes
 from .env.env import DrivingEnv
 from .env.world import build_world_spec, load_benchmark_specs, spec_rows, stack_specs, to_torch
+from .eval.rollout import make_rollout_fn
 from .ops.raster import render_frame
 from .ops.render_kernel import H, W, render_kernel
 from .train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
 from .utils.config import default_bc_config
 from .utils.prng import env_draws, prng_key, split
-from .utils.profiling import card_line, device_kernels, profile_trace
+from .utils.profiling import card_line, device_kernels, idle_by_span, profile_trace, span_summary
 
 BASELINE = 20.0  # the reference's env steps/s per CARLA server (bench.py:4-6)
 SKIP_POLICY_ACTION = (0.3, 0.0, 0.0)  # bench.py:171
@@ -175,19 +180,30 @@ def main(argv=None) -> int:
     sync()
     stats = {"worlds": n, "steps": steps, "device": torch.cuda.get_device_name(0) if cuda else "cpu"}
     if args.profile:
+        rollout = make_rollout_fn(policy, cfg, steps)
+        rollout(spec, params, keys)  # warm-up
+        sync()
         with profile_trace(args.profile) as prof:
             t0 = time.perf_counter()
-            run(spec, params, keys)
+            rollout(spec, params, keys)
             sync()
             span = (time.perf_counter() - t0) * 1e3
         kernels = device_kernels(prof)
         busy = sum(ms for _, ms in kernels.values())
         stats["profile"] = {"busy_ms": busy, "wall_ms": span,
                             "launches": sum(c for c, _ in kernels.values())}
-        _log(f"profiled run: device busy {busy:.3f} ms of {span:.3f} ms wall ({100 * busy / span:.1f}%), "
+        _log(f"profiled eval rollout: device busy {busy:.3f} ms of {span:.3f} ms wall ({100 * busy / span:.1f}%), "
              f"{stats['profile']['launches']} kernel launches; trace in {args.profile}")
         for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]:
             _log(f"{ms:10.3f} ms {c:7d}x {name[:100]}")
+        summary = span_summary()
+        stats["profile"].update(spans=summary["spans"], idle_by_span=idle_by_span(prof.trace_path))
+        for name, sp in summary["spans"].items():
+            _log(f"span {name}: {sp['count']}x, host {sp['host_ms']:.3f} ms (self {sp['host_self_ms']:.3f}), "
+                 + ("stream not recorded" if sp["stream_ms"] is None else
+                    f"stream {sp['stream_ms']:.3f} ms (self {sp['stream_self_ms']:.3f})"))
+        for name, ms in stats["profile"]["idle_by_span"].items():
+            _log(f"device idle {ms:10.3f} ms in {name}")
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()

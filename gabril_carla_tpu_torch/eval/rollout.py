@@ -27,6 +27,11 @@ i the key ``split(key, n)[i]`` (JAX :150-153), so a world's draws do not
 depend on how the worlds are sharded.
 With a mesh, each 'data' rank rolls its ``n / data`` worlds and every rank
 gets all ``n`` back (JAX's ``P("data")`` placement of the specs).
+
+Under torch.profiler the call, its draws, its reset, each tick and each
+tick's stages are spans (utils/profiling.py ``span``: ``rollout.call``,
+``rollout.tick``, ``rollout.render`` and so on); with no profiler running
+each costs one flag check.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..ops.heatmap import GazeHeatmapper
 from ..ops.raster import analytic_gaze, confounded_overlay, render_frame
 from ..parallel.mesh import all_gather_rows, data_rank, data_size
 from ..utils.prng import env_draws, split
+from ..utils.profiling import span
 
 WARMUP_STEPS = 10
 HARD_STOP = 2000  # = fps * 100
@@ -88,41 +94,55 @@ def make_rollout_fn(policy_fn, cfg, steps: int = HARD_STOP, use_analytic_gaze: b
     def compute_heat(spec, state, params, obs):
         if not heat_on:
             return None
-        if gaze_predictor_apply is not None:
-            # the UNet head is an unbounded 1x1 conv: clamp (bc_agent.py:277-278)
-            pred = gaze_predictor_apply(params["gaze_predictor"], obs).clamp(0.0, 1.0)
-            return pred.repeat(1, 1, 1, s)
-        coords = analytic_gaze(spec, state, heatmapper.maxpoints)
-        return heatmapper.heatmaps(coords)[..., None].repeat(1, 1, 1, s)
+        with span("rollout.heat"):
+            if gaze_predictor_apply is not None:
+                # the UNet head is an unbounded 1x1 conv: clamp (bc_agent.py:277-278)
+                pred = gaze_predictor_apply(params["gaze_predictor"], obs).clamp(0.0, 1.0)
+                return pred.repeat(1, 1, 1, s)
+            coords = analytic_gaze(spec, state, heatmapper.maxpoints)
+            return heatmapper.heatmaps(coords)[..., None].repeat(1, 1, 1, s)
 
     @torch.inference_mode()
     def rollout(spec, params, keys):
-        b = spec.route_len.shape[0]
-        dev = spec.route_len.device
-        keys = np.asarray(keys, np.uint32)
-        if keys.shape != (b, 2):
-            raise ValueError(f"keys must be [{b}, 2] threefry keys, got {keys.shape}")
-        draws = torch.from_numpy(env_draws(keys, steps)).to(dev)
-        state = env.reset(spec)
-        frames = render(spec, state)[..., None].repeat(1, 1, 1, s)  # [B, H, W, S]
-        # warm-up no-op: full brake (noop_control, autonomous_agent.py:194-206)
-        noop = torch.zeros(7, device=dev)
-        noop[2] = 1.0
-        trace = []
-        for t in range(steps):
-            frame = render(spec, state)
-            frames = torch.cat([frames[..., 1:], frame[..., None]], -1)
-            action = policy_fn(params, frames, compute_heat(spec, state, params, frames))
-            if confounded:
-                # predict -> overlay -> re-predict; the overlaid frame stays in
-                # the ring, so older stack entries keep their own overlays
-                overlaid = confounded_overlay(frame, action)
-                frames = torch.cat([frames[..., :-1], overlaid[..., None]], -1)
-                action = policy_fn(params, frames, compute_heat(spec, state, params, frames))
-            action = torch.where((state.t < WARMUP_STEPS)[:, None], noop, action)
-            state = env.step(spec, state, action, draws[t])
-            trace.append(frame if return_frames else state.ego.pos)
-        return state, torch.stack(trace)
+        with span("rollout.call"):
+            b = spec.route_len.shape[0]
+            dev = spec.route_len.device
+            keys = np.asarray(keys, np.uint32)
+            if keys.shape != (b, 2):
+                raise ValueError(f"keys must be [{b}, 2] threefry keys, got {keys.shape}")
+            with span("rollout.draws"):
+                draws = torch.from_numpy(env_draws(keys, steps)).to(dev)
+            with span("rollout.reset"):
+                state = env.reset(spec)
+                frames = render(spec, state)[..., None].repeat(1, 1, 1, s)  # [B, H, W, S]
+                # warm-up no-op: full brake (noop_control, autonomous_agent.py:194-206)
+                noop = torch.zeros(7, device=dev)
+                noop[2] = 1.0
+            trace = []
+            for t in range(steps):
+                with span("rollout.tick"):
+                    with span("rollout.render"):
+                        frame = render(spec, state)
+                    with span("rollout.ring"):
+                        frames = torch.cat([frames[..., 1:], frame[..., None]], -1)
+                    heat = compute_heat(spec, state, params, frames)
+                    with span("rollout.policy"):
+                        action = policy_fn(params, frames, heat)
+                    if confounded:
+                        # predict -> overlay -> re-predict; the overlaid frame stays in
+                        # the ring, so older stack entries keep their own overlays
+                        with span("rollout.overlay"):
+                            overlaid = confounded_overlay(frame, action)
+                            frames = torch.cat([frames[..., :-1], overlaid[..., None]], -1)
+                        heat = compute_heat(spec, state, params, frames)
+                        with span("rollout.policy"):
+                            action = policy_fn(params, frames, heat)
+                    with span("rollout.noop"):
+                        action = torch.where((state.t < WARMUP_STEPS)[:, None], noop, action)
+                    with span("rollout.env_step"):
+                        state = env.step(spec, state, action, draws[t])
+                    trace.append(frame if return_frames else state.ego.pos)
+            return state, torch.stack(trace)
 
     rollout.steps = steps
     return rollout

@@ -50,6 +50,7 @@ from ..ops.gaze import gaze_mask_from_latent, gmd_dropout
 from ..ops.heatmap import GazeHeatmapper
 from ..parallel.mesh import pmean
 from ..utils.prng import flax_fold, split
+from ..utils.profiling import span
 from .optim import TrainState, masked
 
 GAZE_METHODS = ("None", "Teacher", "Reg", "Mask", "Contrastive", "ViSaRL", "AGIL", "GRIL")
@@ -324,9 +325,10 @@ def bc_loss_fn(params, models: BCModels, cfg, batch, rng=None, train: bool = Tru
     differs between frameworks.
     """
     g, d = cfg.gaze, cfg.dropout
-    xx, gg, center = models.heatmapper.prepare_for_bc(
-        batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
-        grayscale=cfg.model["grayscale"], aggregate_stack=bool(g.get("temporal_flag", True)))
+    with span("train.heat_prep"):
+        xx, gg, center = models.heatmapper.prepare_for_bc(
+            batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
+            grayscale=cfg.model["grayscale"], aggregate_stack=bool(g.get("temporal_flag", True)))
     actions = batch["actions"]
     if actions.dim() == 3:
         actions = actions[:, min(center, actions.shape[1] - 1)]
@@ -402,10 +404,12 @@ def loss_and_grads(models: BCModels, cfg, params: dict, batch, rng=None, train: 
                    per_key=None):
     """(loss, metrics, grads) of bc_loss_fn; grads a dict like ``params``
     (zeros for a parameter the loss does not reach, as jax.grad gives)."""
-    live = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, metrics = bc_loss_fn(live, models, cfg, batch, rng, train, per_key)
-    grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(p) if gr is None else gr for (k, p), gr in zip(live.items(), grads)}
+    with span("train.forward"):
+        live = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, metrics = bc_loss_fn(live, models, cfg, batch, rng, train, per_key)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if gr is None else gr for (k, p), gr in zip(live.items(), grads)}
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -423,15 +427,19 @@ def make_bc_train_step(models: BCModels, cfg, group=None, global_rows: bool = Fa
     draws for the batch as it is."""
 
     def step(state: TrainState, batch, rng=None):
-        bsz = batch["obs_seq"].shape[0]
-        rows = None
-        if global_rows and group is not None:
-            rows = (dist.get_rank(group) * bsz, dist.get_world_size(group) * bsz)
-        draws = step_draws(rng, cfg, bsz, batch["obs_seq"].device, rows=rows)
-        _, metrics, grads = loss_and_grads(models, cfg, state.params, batch, draws)
-        if group is not None:
-            grads, metrics = pmean((grads, metrics), group)
-        return state.apply_gradients(grads), metrics
+        with span("train.step"):
+            bsz = batch["obs_seq"].shape[0]
+            rows = None
+            if global_rows and group is not None:
+                rows = (dist.get_rank(group) * bsz, dist.get_world_size(group) * bsz)
+            with span("train.draws"):
+                draws = step_draws(rng, cfg, bsz, batch["obs_seq"].device, rows=rows)
+            _, metrics, grads = loss_and_grads(models, cfg, state.params, batch, draws)
+            if group is not None:
+                with span("train.allreduce"):
+                    grads, metrics = pmean((grads, metrics), group)
+            with span("train.optimizer"):
+                return state.apply_gradients(grads), metrics
 
     return step
 

@@ -22,6 +22,7 @@ from ..models.unet import UNet
 from ..ops.heatmap import GazeHeatmapper
 from .bc import _dtype, full_f32
 from ..parallel.mesh import pmean
+from ..utils.profiling import span
 from .optim import TrainState
 
 
@@ -82,9 +83,10 @@ def init_gaze_state(cfg, key, tx, device="cuda"):
 def gaze_loss_fn(params, model: nn.Module, heatmapper: GazeHeatmapper, cfg, batch):
     """MSE of the float32 prediction against prepare_for_gaze_predictor's
     target -> (loss, {"loss": loss})."""
-    obs, target, _ = heatmapper.prepare_for_gaze_predictor(
-        batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
-        grayscale=cfg.model["grayscale"])
+    with span("train.heat_prep"):
+        obs, target, _ = heatmapper.prepare_for_gaze_predictor(
+            batch["obs_seq"], batch["gaze_seq"], frame_stack=cfg.data["frame_stack"],
+            grayscale=cfg.model["grayscale"])
     pred = functional_call(model, params, (obs,)).float()
     loss = torch.mean((pred - target) ** 2)
     return loss, {"loss": loss}
@@ -92,9 +94,11 @@ def gaze_loss_fn(params, model: nn.Module, heatmapper: GazeHeatmapper, cfg, batc
 
 def gaze_loss_and_grads(model, heatmapper, cfg, params: dict, batch):
     """(loss, metrics, grads) of gaze_loss_fn; grads a dict like ``params``."""
-    live = {k: v.detach().requires_grad_() for k, v in params.items()}
-    loss, metrics = gaze_loss_fn(live, model, heatmapper, cfg, batch)
-    grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+    with span("train.forward"):
+        live = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, metrics = gaze_loss_fn(live, model, heatmapper, cfg, batch)
+    with span("train.backward"):
+        grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -105,10 +109,13 @@ def make_gaze_train_step(model: nn.Module, heatmapper: GazeHeatmapper, cfg, grou
     the optimizer (JAX gaze_predictor.py:85-87)."""
 
     def step(state: TrainState, batch, rng=None):
-        _, metrics, grads = gaze_loss_and_grads(model, heatmapper, cfg, state.params, batch)
-        if group is not None:
-            grads, metrics = pmean((grads, metrics), group)
-        return state.apply_gradients(grads), metrics
+        with span("train.step"):
+            _, metrics, grads = gaze_loss_and_grads(model, heatmapper, cfg, state.params, batch)
+            if group is not None:
+                with span("train.allreduce"):
+                    grads, metrics = pmean((grads, metrics), group)
+            with span("train.optimizer"):
+                return state.apply_gradients(grads), metrics
 
     return step
 

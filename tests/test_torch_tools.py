@@ -9,8 +9,8 @@ a GIF of the frames JAX's main writes (decoded, within one level on all
 but 1% of values: GIF palettes quantize). figures.main writes the PNG names
 JAX's writes for tests/test_config.py's reports, and _collect is equal.
 profile_trace writes a Chrome trace of the block on the CPU (and nothing
-when disabled); sim_wall_ratio equals JAX's. mlp_head and Projector,
-carried from flax params, give flax's outputs within 1e-5.
+when disabled; its spans are tests/test_torch_tracing.py's). mlp_head and
+Projector, carried from flax params, give flax's outputs within 1e-5.
 """
 
 import json
@@ -23,7 +23,6 @@ import torch
 import gabril_carla_tpu.cli.figures as JF
 import gabril_carla_tpu.cli.visualize as JVZ
 import gabril_carla_tpu.models.heads as JHD
-import gabril_carla_tpu.utils.profiling as JPR
 import gabril_carla_tpu_torch.cli.figures as PF
 import gabril_carla_tpu_torch.cli.visualize as PVZ
 import gabril_carla_tpu_torch.models.heads as PHD
@@ -162,11 +161,6 @@ def test_profile_trace_writes_a_trace(tmp_path):
     with PPR.profile_trace(str(tmp_path / "off"), enabled=False) as prof:
         (x @ x).sum()
     assert prof is None and not (tmp_path / "off").exists()
-
-
-@pytest.mark.parametrize("sim, wall", [(10.0, 4.0), (3.0, 0.0), (0.0, 2.0)])
-def test_sim_wall_ratio(sim, wall):
-    assert PPR.sim_wall_ratio(sim, wall) == JPR.sim_wall_ratio(sim, wall)
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2])
