@@ -4,7 +4,7 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit;
-  2. build: nvcc compiles csrc/render.cu and csrc/threefry.cu for sm_90a, one
+  2. build: nvcc compiles csrc/render.cu, csrc/threefry.cu and csrc/unet.cu for sm_90a, one
      process a source started together (registers, shared memory);
   3. kernel vs plain: the render kernel against its plain PyTorch version on
      the same operands, on the 20 real routes at reset and after 40 ticks
@@ -176,11 +176,18 @@ Phases, each fatal on failure:
      full loop at SMALL_WORLDS x SMALL_STEPS, median of SHARE_REPS runs;
      K1 held to its plain version on the final state of the last full run
      at BENCH_WORLDS and timed there beside its bound and the plain
-     version.
+     version;
+ 24. the frozen gaze UNet's forward as CUDA kernels (ops/unet_kernel.py,
+     csrc/unet.cu) at UNET_WORLDS frame rings (the mask_unet eval cell's
+     heat): LAUNCHES_PER_FORWARD launches a forward, two calls bitwise,
+     within tests/test_torch_unet_kernel.py's bar of the plain version on
+     the card (TF32 off), timed with CUDA events beside its byte bound
+     (each layer's inputs read once, bf16 written once), the plain version
+     and, as library_ms, the module's cuDNN forward that it replaces.
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
-the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's, 22's
-and 23's numbers, the card line, and last
+the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's, 22's,
+23's and 24's numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -2532,6 +2539,117 @@ def bench_phase(card: str, tmp, policy, cfg, params) -> dict:
     return rec
 
 
+# phase 24: the frozen gaze UNet's forward as CUDA kernels (ops/unet_kernel.py, csrc/unet.cu)
+UNET_WORLDS = 2048  # drivebench's mask_unet.eval_w2048: one heat call a tick
+UNET_REPS = 10
+UNET_MFLOP = 773.0  # a 180x320 sample's products (drivebench/counts/flops.py unet_layers)
+
+
+class UnetBytes:
+    """unet_forward's ops on meta tensors, counting the bytes each kernel
+    has to move: its inputs read once, its output written once."""
+
+    def __init__(self):
+        self.bytes = 0
+
+    def _new(self, shape, dtype=torch.bfloat16):
+        t = torch.empty(shape, dtype=dtype, device="meta")
+        self.bytes += t.numel() * t.element_size()
+        return t
+
+    def _read(self, *ts):
+        self.bytes += sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def conv3x3(self, a, ss_a, mode, skip, ss_skip, weight, bias):
+        from gabril_carla_tpu_torch.ops.unet_kernel import GROUPS, POOL
+
+        self._read(a, ss_a, skip, ss_skip)
+        b, h, w, _ = a.shape
+        h, w = (h // 2, w // 2) if mode == POOL else (h, w)
+        return self._new((b, h, w, weight.shape[0])), self._new((b, 1, GROUPS, 3), torch.float32)
+
+    def finalize(self, part, gamma, beta):
+        self._read(part)
+        return self._new((part.shape[0], gamma.shape[0], 2), torch.float32)
+
+    def conv_t(self, x, ss, weight, bias, pad_h):
+        self._read(x, ss)
+        b, h, w, _ = x.shape
+        return self._new((b, 2 * h + pad_h, 2 * w, weight.shape[1]))
+
+    def out1x1(self, x, ss, weight, bias):
+        self._read(x, ss)
+        return self._new((*x.shape[:3], weight.shape[0]))
+
+
+def unet_phase(card: str) -> dict:
+    """Phase 24: the UNet kernels at the mask_unet eval cell's batch."""
+    from torch.func import functional_call
+
+    from gabril_carla_tpu_torch.models.unet import UNet
+    from gabril_carla_tpu_torch.ops import unet_kernel as UK
+
+    b = UNET_WORLDS
+    model = UNet(2, 1, dtype=torch.bfloat16).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    params = {}
+    for name, v in model.state_dict().items():
+        x = torch.randn(v.shape, generator=gen, device="cuda")
+        if name.endswith("weight") and v.dim() >= 2:  # drivebench's draws (common.make_params)
+            x = x * math.sqrt(2.0 / math.prod(v.shape[1:])) * (0.1 if name.startswith("out.") else 1.0)
+        elif name.endswith("weight"):
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.01 * x
+        params[name] = x
+    obs = torch.rand((b, 180, 320, 2), generator=gen, device="cuda")
+
+    def kernels():
+        return UK.unet_forward(model, params, obs)
+
+    def module():
+        return functional_call(model, params, (obs.permute(0, 3, 1, 2),)).permute(0, 2, 3, 1)
+
+    before = UK.unet_kernel.launches
+    got = kernels()
+    torch.cuda.synchronize()
+    launches = UK.unet_kernel.launches - before
+    again = kernels()
+    bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
+    del again
+    plain = UK.unet_forward(model, params, obs, UK.PlainOps())
+    lib = module()
+    torch.cuda.synchronize()
+
+    def rel(x, y):
+        x, y = x.double(), y.double()
+        return ((x - y).norm() / y.norm()).item()
+
+    gap_plain, gap_module = rel(got, plain), rel(got, lib)
+    del plain, lib
+    torch.cuda.empty_cache()
+    k_ms = time_ms(kernels, UNET_REPS)
+    p_ms = time_ms(lambda: UK.unet_forward(model, params, obs, UK.PlainOps()), 2)
+    l_ms = time_ms(module, UNET_REPS)
+    counter = UnetBytes()
+    UK.unet_forward(model, {k: v.to("meta") for k, v in params.items()}, obs.to("meta"), counter)
+    t_bytes = 1e3 * counter.bytes / PEAK_BYTES_S
+    t_ops = 1e3 * UNET_MFLOP * 1e6 * b / PEAK_BF16_S
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"[unet] {b} rings, 180x320: kernels {k_ms:.3f} ms a forward ({launches} launches, bitwise "
+        f"repeatable: {bitwise}); bound {b_ms:.3f} ms by {b_by} ({counter.bytes / 1e9:.2f} GB; "
+        f"{100 * b_ms / k_ms:.1f}% of it; products {t_ops:.3f} ms); plain version {p_ms:.3f} ms; "
+        f"module's cuDNN forward (library_ms) {l_ms:.3f} ms; relative L2 to the plain version "
+        f"{gap_plain:.5f}, to the module {gap_module:.5f}; on {card}")
+    if launches != UK.LAUNCHES_PER_FORWARD or not bitwise or not gap_plain <= 8 * 2.0 ** -8:
+        raise SystemExit(f"chip_smoke: the UNet kernels launched {launches} times, bitwise {bitwise}, "
+                         f"{gap_plain} from the plain version")
+    return {"worlds": b, "launches": launches, "bitwise": bitwise, "rel_l2_plain": gap_plain,
+            "rel_l2_module": gap_module, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": counter.bytes, "products_ms": t_ops,
+            "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2544,6 +2662,7 @@ def main() -> int:
     from gabril_carla_tpu_torch.env.world import load_benchmark_specs, spec_rows, to_torch
     from gabril_carla_tpu_torch.eval.rollout import make_rollout_fn
     from gabril_carla_tpu_torch.ops import threefry_kernel as TK
+    from gabril_carla_tpu_torch.ops import unet_kernel as UK
     from gabril_carla_tpu_torch.ops.render_kernel import build, render_kernel
     from gabril_carla_tpu_torch.train.bc import build_bc_models, init_bc_params, make_bc_policy_fn
     from gabril_carla_tpu_torch.utils.config import default_bc_config
@@ -2562,15 +2681,16 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(lambda b: b(), (build, TK.build)))
+    with ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(lambda b: b(), (build, TK.build, UK.build)))
     for lib, build_log in built:
-        log(f"[build] {lib.name} ({time.perf_counter() - t0:.1f} s for both)")
+        log(f"[build] {lib.name} ({time.perf_counter() - t0:.1f} s for all three)")
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
     render_kernel.load()
     TK.threefry_kernel.load()
+    UK.unet_kernel.load()
 
     # the policy and the worlds of the main path
     cfg = default_bc_config()
@@ -2732,6 +2852,11 @@ def main() -> int:
         bench = bench_phase(card, tmp, policy, cfg, params)
         max_err = max(max_err, bench["k1_at_bench_worlds"]["max_abs_err"])
         log(f"[phases] 23 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 24. the gaze UNet's forward as CUDA kernels
+        t_phase = time.perf_counter()
+        unet = unet_phase(card)
+        log(f"[phases] 24 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
@@ -2753,7 +2878,12 @@ def main() -> int:
                              **{f"one step {k}": v for k, v in threefry["launches_per_step"].items()}},
         "max_abs_err": threefry["max_abs_err"], "ms": threefry["ms"], "plain_ms": threefry["plain_ms"],
         "bound_ms": threefry["bound_ms"], "bound_by": threefry["bound_by"], "library_ms": None,
-        "torch_rand_ms": threefry["torch_rand_ms"], "elements": threefry["elements"]}]}))
+        "torch_rand_ms": threefry["torch_rand_ms"], "elements": threefry["elements"]}, {
+        "name": "unet", "route": "cuda", "source": "gabril_carla_tpu_torch/csrc/unet.cu",
+        "replaces": None, "replaces_note": "no TPU kernel: the JAX package's UNet convs and norms were XLA's",
+        "launches": unet["launches"], "max_abs_err": None, "rel_l2_plain": unet["rel_l2_plain"],
+        "ms": unet["ms"], "plain_ms": unet["plain_ms"], "bound_ms": unet["bound_ms"],
+        "bound_by": unet["bound_by"], "library_ms": unet["library_ms"], "worlds": unet["worlds"]}]}))
     print(json.dumps({"main": main_rec}))
     print(json.dumps({"train": train}))
     print(json.dumps({"gaze_train": gaze}))
@@ -2768,6 +2898,7 @@ def main() -> int:
     print(json.dumps({"human": human}))
     print(json.dumps({"threefry": threefry}))
     print(json.dumps({"bench": bench}))
+    print(json.dumps({"unet": unet}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -20,6 +20,7 @@ from ..convert import flax_init, gaze_layout, gaze_params_from_flax, lecun_init,
 from ..models.encoder import AutoEncoder
 from ..models.unet import UNet
 from ..ops.heatmap import GazeHeatmapper
+from ..ops.unet_kernel import unet_forward
 from .bc import _dtype, full_f32
 from ..parallel.mesh import pmean
 from ..utils.profiling import span
@@ -122,9 +123,14 @@ def make_gaze_train_step(model: nn.Module, heatmapper: GazeHeatmapper, cfg, grou
 
 def make_gaze_predictor_apply(model: nn.Module):
     """The frozen predictor as the rollout calls it: (params, obs [B, H, W,
-    S] NHWC) -> [B, H, W, 1] in the model's compute dtype."""
+    S] NHWC) -> [B, H, W, 1] in the model's compute dtype. A bf16 UNet on
+    CUDA tensors runs ops/unet_kernel.py's kernels; every other case (the
+    AutoEncoder, a float32 UNet, CPU tensors) the module's forward."""
+    fused = isinstance(model, UNet) and model.dtype == torch.bfloat16
 
     def apply(params, obs):
+        if fused and obs.is_cuda:
+            return unet_forward(model, params, obs)
         return functional_call(model, params, (obs.permute(0, 3, 1, 2),)).permute(0, 2, 3, 1)
 
     return apply

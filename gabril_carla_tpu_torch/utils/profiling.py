@@ -103,7 +103,8 @@ _PKG = __name__.rsplit(".", 2)[0]
 # (span_summary's counter name, module, kernel object): read where the module is loaded, so that a
 # span never imports one; a kernel not loaded yet has launched nothing
 _COUNTERS = (("render_kernel_launches", f"{_PKG}.ops.render_kernel", "render_kernel"),
-             ("threefry_kernel_launches", f"{_PKG}.ops.threefry_kernel", "threefry_kernel"))
+             ("threefry_kernel_launches", f"{_PKG}.ops.threefry_kernel", "threefry_kernel"),
+             ("unet_kernel_launches", f"{_PKG}.ops.unet_kernel", "unet_kernel"))
 
 
 def _launches() -> list[int]:
@@ -205,7 +206,7 @@ def span_records() -> list[dict]:
 def span_summary() -> dict:
     """{"spans": {name: {count, host_ms, host_self_ms, stream_ms,
     stream_self_ms}}, "counters": {render_kernel_launches,
-    threefry_kernel_launches}} over the kept spans: totals over each name's
+    threefry_kernel_launches, unet_kernel_launches}} over the kept spans: totals over each name's
     spans, self time without what their children cover, stream times None
     without CUDA events; the counters are the launches from the record's
     start to its last kept span's close. Synchronizes the card first."""

@@ -266,7 +266,8 @@ def test_profile_trace_starts_a_fresh_record(tmp_path):
             with P.span("train.optimizer"):
                 torch.ones(2).sum()
     assert [r["name"] for r in P.span_records()] == ["train.optimizer", "train.step"]
-    assert P.span_summary()["counters"] == {"render_kernel_launches": 0, "threefry_kernel_launches": 0}
+    assert P.span_summary()["counters"] == {"render_kernel_launches": 0, "threefry_kernel_launches": 0,
+                                            "unet_kernel_launches": 0}
 
 
 def test_span_events_come_from_the_pool(monkeypatch, tmp_path):
