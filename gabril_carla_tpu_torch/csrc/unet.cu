@@ -15,22 +15,28 @@
 // a byte, far below the H100's 295), so each kernel reads its inputs once
 // and writes bf16 once:
 //
-// 1. conv3x3 (templated on the tile and its sources). A block loads its
-//    output tile's input with a one-pixel halo into shared memory, 16 bytes
-//    a thread, and on the way applies the producer's GroupNorm as
+// 1. conv3x3 (templated on the tile, its sources and its pipeline). A
+//    persistent block loads the weights once, then walks its tiles: cp.async
+//    copies the next tile's input with its one-pixel halo (and the sample's
+//    scale and shift) into shared memory while the block computes the
+//    current one. A transform pass applies the producer's GroupNorm as
 //    per-(sample, channel) scale and shift, then relu, then rounds to bf16,
-//    as the module's next conv casts its float32 input. kPool takes the
-//    2x2 max pool (floored) on load; kRing reads the float32 frame ring and
+//    as the module's next conv casts its float32 input. kPool takes the 2x2
+//    max pool (floored) there; kRing casts the float32 frame ring and
 //    zero-pads its channels to 8; a decoder block concatenates the
 //    transposed conv's bf16 output (no norm) and the encoder's stored
-//    pre-norm skip (its norm and relu) on load. The 9 taps run as mma.sync
-//    bf16 products with float32 sums (m16n8k8 at 8 input channels, k16
-//    above), A and B by ldmatrix from rows swizzled across the banks. The
-//    epilogue adds the bf16-rounded bias, stores bf16 NHWC (the pre-norm
-//    output that goes to memory) through shared memory, and writes the
-//    tile's per-group (count, mean, M2) of the stored values, two passes
-//    over the tile, to a scratch buffer: no atomics, so results are
-//    bitwise repeatable. Blocks are persistent and load the weights once.
+//    pre-norm skip (its norm and relu). The 9 taps run as mma.sync bf16
+//    products with float32 sums (m16n8k8 at 8 input channels, k16 above), A
+//    and B by ldmatrix from rows swizzled across the banks. The epilogue
+//    adds the bf16-rounded bias and stages the tile in shared memory; one
+//    pass stores it (bf16 NHWC, the pre-norm output that goes to memory)
+//    and sums its channels, a second sums the squares about each group's
+//    mean, each reduced across the block in a fixed order into the tile's
+//    per-group (count, mean, M2) in a scratch buffer: no atomics, so
+//    results are bitwise repeatable. What limits it on the card is the
+//    shared memory's and the issue slots' work a tile (the taps' ldmatrix
+//    reads are 9 times the tile), not the copies: a second copy stage
+//    changed nothing (PERF.md).
 // 2. gn_finalize merges each sample's tile partials in tile order (Chan's
 //    formula) into per-(sample, channel) scale = gamma * rstd and
 //    shift = beta - mean * scale.
@@ -136,12 +142,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
 // ---- 1. conv3x3 ---------------------------------------------------------------
 
 struct ConvArgs {
@@ -160,12 +160,15 @@ struct ConvArgs {
   int tiles_y, tiles_x;
 };
 
-// CA: source A's channels in shared memory (the ring padded to 8 or 16), CB:
+// CA: source A's channels in shared memory (the ring's, at most 8, padded to 8), CB:
 // source B's (0: none), CO: outputs, MODE: source A's load, TH x TW: the
-// output tile.
-template <int CA_, int CB_, int CO_, int MODE_, int TH_, int TW_>
+// output tile, STAGES: tiles whose copies are in flight at once, UNROLL:
+// the taps unrolled together, MINB: the blocks an SM must hold (a register
+// cap for the compiler).
+template <int CA_, int CB_, int CO_, int MODE_, int TH_, int TW_, int STAGES_, int UNROLL_, int MINB_>
 struct Conv {
   static constexpr int CA = CA_, CB = CB_, CO = CO_, MODE = MODE_, TH = TH_, TW = TW_;
+  static constexpr int STAGES = STAGES_, UNROLL = UNROLL_, MINB = MINB_;
   static constexpr int CIN = CA + CB;
   static constexpr int NCH = CIN / 8, NCA = CA / 8, NCO = CO / 8, NT = CO / 8;
   static constexpr int IH = TH + 2, IW = TW + 2;
@@ -176,63 +179,114 @@ struct Conv {
   static constexpr int OUT_UNITS = PIX * NCO;
   static constexpr int ACT_UNITS = IN_UNITS > OUT_UNITS ? IN_UNITS : OUT_UNITS;
   static constexpr int W_UNITS = 9 * CO * NCH;
-  static constexpr int SMEM = (ACT_UNITS + W_UNITS) * 16 + CIN * 8 + CO * 4;
+  static constexpr int P = MODE == kPool ? 4 : 1;  // raw units a unit of the tile (kPool: its 2x2 window)
+  static constexpr int RAW_UNITS = P * IN_UNITS;
+  // the tile's copies as they arrive: 16-byte units, or the ring's floats
+  static constexpr int RAW_BYTES = MODE == kRing ? IH * IW * CA * 4 : RAW_UNITS * 16;
+  static constexpr int SMEM =
+      (ACT_UNITS + W_UNITS) * 16 + STAGES * (RAW_BYTES + CIN * 8) + (CO + kWarps * CO + kGroups) * 4;
   static_assert(CA % 8 == 0 && CB % 8 == 0 && CO % 8 == 0 && CO <= 32, "channel counts");
   static_assert(MODE != kRaw || CB > 0, "a raw source is the decoder's upsampled half");
+  static_assert(kThreads % NCH == 0, "a thread's units share their channels");
 };
 
-// One 16-byte unit of the input tile: the pixel's channels [8c, 8c + 8)
-// after its load (norm, relu, pool, ring cast), as bf16.
+// Asynchronous copies to shared memory; ``bytes`` 0 fills zeros and reads
+// nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of the thread's latest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copies of a tile's input with its halo into ``raw``: per unit
+// of the tile (pixel pix of the (TH + 2) x (TW + 2) window, channels
+// [8c, 8c + 8)) the skip's or source A's 16 bytes, or source A's 2x2 window
+// (kPool, raw unit (k * IH * IW + pix) * NCH + c), or the ring's floats
+// (kRing, float pix * cin + ch); and the sample's (scale, shift) pairs of
+// the normed channels into ``ss``. Outside the image nothing is read.
 template <class K>
-__device__ __forceinline__ uint4 load_unit(const ConvArgs& p, const float2* ss, int bb, int y, int x,
-                                           int c) {
-  float f[8];
-  if (c >= K::NCA) {  // the skip
-    const int cb = c - K::NCA;
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        p.b + (((size_t)bb * p.h + y) * p.w + x) * K::CB + cb * 8);
-    norm_relu8(u, ss + c * 8, f);
-    return pack8(f);
-  }
+__device__ __forceinline__ void issue_tile(const ConvArgs& p, uint32_t raw_s, uint32_t ss_s, int bb,
+                                           int ty0, int tx0) {
+  const int tid = threadIdx.x;
+  if ((K::MODE == kNorm || K::MODE == kPool) && tid < K::CA / 2)
+    cp_async16(ss_s + tid * 16, p.ss_a + (size_t)bb * K::CA + 2 * tid, 16);
+  if (K::CB > 0 && tid >= K::CA / 2 && tid < K::CIN / 2)
+    cp_async16(ss_s + tid * 16, p.ss_b + (size_t)bb * K::CB + 2 * tid - K::CA, 16);
   if constexpr (K::MODE == kRing) {
-    const float* src = static_cast<const float*>(p.a) + (((size_t)bb * p.h + y) * p.w + x) * p.cin;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = c * 8 + j < p.cin ? src[c * 8 + j] : 0.0f;
-    return pack8(f);
-  } else if constexpr (K::MODE == kRaw) {
-    return *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(p.a) +
-                                           (((size_t)bb * p.h + y) * p.w + x) * K::CA + c * 8);
-  } else if constexpr (K::MODE == kNorm) {
-    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(p.a) +
-                                                    (((size_t)bb * p.h + y) * p.w + x) * K::CA + c * 8);
-    norm_relu8(u, ss + c * 8, f);
-    return pack8(f);
-  } else {  // kPool: the max of the 2x2 window's normed values (rounding commutes with max)
-    const uint16_t* src = static_cast<const uint16_t*>(p.a);
-    uint4 u[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      u[k] = *reinterpret_cast<const uint4*>(
-          src + (((size_t)bb * p.src_h + 2 * y + (k >> 1)) * p.src_w + 2 * x + (k & 1)) * K::CA + c * 8);
-    norm_relu8(u[0], ss + c * 8, f);
-#pragma unroll
-    for (int k = 1; k < 4; ++k) {
-      float g[8];
-      norm_relu8(u[k], ss + c * 8, g);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = fmaxf(f[j], g[j]);
+    const float* ring = static_cast<const float*>(p.a);
+    for (int pix = tid; pix < K::IH * K::IW; pix += kThreads) {
+      const int y = ty0 - 1 + pix / K::IW, x = tx0 - 1 + pix % K::IW;
+      const bool in = y >= 0 && y < p.h && x >= 0 && x < p.w;
+      const float* src = in ? ring + (((size_t)bb * p.h + y) * p.w + x) * p.cin : ring;
+      const uint32_t dst = raw_s + pix * p.cin * 4;
+      if (p.cin % 2 == 0) {
+        for (int ch = 0; ch < p.cin; ch += 2) cp_async8(dst + ch * 4, src + (in ? ch : 0), in ? 8 : 0);
+      } else {
+        for (int ch = 0; ch < p.cin; ++ch) cp_async4(dst + ch * 4, src + (in ? ch : 0), in ? 4 : 0);
+      }
     }
-    return pack8(f);
+  } else {
+    for (int i = threadIdx.x; i < K::RAW_UNITS; i += kThreads) {
+      const int c = i % K::NCH, rest = i / K::NCH, pix = rest % (K::IH * K::IW), k = rest / (K::IH * K::IW);
+      const int y = ty0 - 1 + pix / K::IW, x = tx0 - 1 + pix % K::IW;
+      const bool in = y >= 0 && y < p.h && x >= 0 && x < p.w;
+      const uint16_t* src = p.b;
+      if (!in) {
+        src = p.out;
+      } else if (c >= K::NCA) {
+        src = p.b + (((size_t)bb * p.h + y) * p.w + x) * K::CB + (c - K::NCA) * 8;
+      } else if (K::MODE == kPool) {
+        src = static_cast<const uint16_t*>(p.a) +
+              (((size_t)bb * p.src_h + 2 * y + (k >> 1)) * p.src_w + 2 * x + (k & 1)) * K::CA + c * 8;
+      } else {
+        src = static_cast<const uint16_t*>(p.a) + (((size_t)bb * p.h + y) * p.w + x) * K::CA + c * 8;
+      }
+      cp_async16(raw_s + i * 16, src, in ? 16 : 0);
+    }
   }
 }
 
+// A thread's 8 channel sums a[j] (of its units' channels [8 cu, 8 cu + 8),
+// cu = tid % NCO) summed over the warp's lanes of equal cu, into
+// red[warp][8 cu + j].
 template <class K>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs p) {
+__device__ __forceinline__ void reduce_channels(float (&a)[8], float* red, int lane, int warp) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int o = K::NCO; o < 32; o <<= 1) a[j] += __shfl_xor_sync(0xFFFFFFFFu, a[j], o);
+  if (lane < K::NCO)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[warp * K::CO + lane * 8 + j] = a[j];
+}
+
+template <class K>
+__global__ void __launch_bounds__(kThreads, K::MINB) conv3x3_kernel(const ConvArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* act = reinterpret_cast<uint4*>(smem);  // the input tile, then the output's staging
   uint4* wsm = act + K::ACT_UNITS;              // [tap][co] rows of NCH units
-  float2* ss = reinterpret_cast<float2*>(wsm + K::W_UNITS);
-  float* bias = reinterpret_cast<float*>(ss + K::CIN);
+  uint4* raw0 = wsm + K::W_UNITS;               // STAGES tiles' copies, RAW_BYTES each
+  float2* ssm0 = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(raw0) + K::STAGES * K::RAW_BYTES);
+  float* bias = reinterpret_cast<float*>(ssm0 + K::STAGES * K::CIN);
+  float* red = bias + K::CO;       // [warp][channel] partial sums of the statistics
+  float* gmean = red + kWarps * K::CO;  // [group]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < K::W_UNITS; i += kThreads) {
@@ -247,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs p) {
   }
   for (int i = tid; i < K::CO; i += kThreads) bias[i] = round_bf16(p.bias[i]);
 
-  const uint32_t act_s = smem_addr(act), w_s = smem_addr(wsm);
+  const uint32_t act_s = smem_addr(act), w_s = smem_addr(wsm), raw_s = smem_addr(raw0), ss_s = smem_addr(ssm0);
   const int per_sample = p.tiles_y * p.tiles_x;
   const int n_tiles = p.batch * per_sample;
   // the lane's A rows: pixel m * 16 + (lane & 15) of the tile, as the input
@@ -259,39 +313,71 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs p) {
     q = q < K::PIX ? q : K::PIX - 1;
     base[j] = (q / K::TW) * K::IW + q % K::TW;
   }
+  // the thread's units of the input tile all have channels [8c, 8c + 8)
+  const int c = tid % K::NCH;
+  const bool normed = c >= K::NCA || K::MODE == kNorm || K::MODE == kPool;
 
+  // The copies of the block's next STAGES tiles are in flight while it
+  // computes; stage k % STAGES holds its k-th tile's. Each tile's copies are
+  // one group (empty past the last tile).
+  auto issue = [&](int tile, int stage) {
+    if (tile < n_tiles) {
+      const int t = tile % per_sample;
+      issue_tile<K>(p, raw_s + stage * K::RAW_BYTES, ss_s + stage * K::CIN * 8, tile / per_sample,
+                    (t / p.tiles_x) * K::TH, (t % p.tiles_x) * K::TW);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < K::STAGES; ++st) issue(blockIdx.x + st * gridDim.x, st);
+
+  int stage = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int bb = tile / per_sample, t = tile % per_sample;
     const int ty0 = (t / p.tiles_x) * K::TH, tx0 = (t % p.tiles_x) * K::TW;
     const int vh = min(K::TH, p.h - ty0), vw = min(K::TW, p.w - tx0);
-    __syncthreads();  // the last tile's staging is read
-    if constexpr (K::MODE == kNorm || K::MODE == kPool)
-      for (int i = tid; i < K::CA; i += kThreads) ss[i] = p.ss_a[(size_t)bb * K::CA + i];
-    if constexpr (K::CB > 0)
-      for (int i = tid; i < K::CB; i += kThreads) ss[K::CA + i] = p.ss_b[(size_t)bb * K::CB + i];
-    __syncthreads();
-
-    // the input tile with its halo; outside the image the conv's zero padding
-    constexpr int U = K::MODE == kPool ? 2 : 4;
-    for (int i0 = tid; i0 < K::IN_UNITS; i0 += kThreads * U) {
-      uint4 v[U];
+    const uint4* raw = raw0 + stage * (K::RAW_BYTES / 16);
+    const float2* ssm = ssm0 + stage * K::CIN;
+    cp_async_wait<K::STAGES - 1>();
+    __syncthreads();  // this tile's copies are in; the last tile's staging is read
+    float2 s8[8];
+    if (normed) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * kThreads;
-        const int pix = i / K::NCH, c = i % K::NCH;
-        const int y = ty0 - 1 + pix / K::IW, x = tx0 - 1 + pix % K::IW;
-        v[u] = make_uint4(0, 0, 0, 0);
-        if (i < K::IN_UNITS && y >= 0 && y < p.h && x >= 0 && x < p.w)
-          v[u] = load_unit<K>(p, ss, bb, y, x, c);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * kThreads;
-        const int pix = i / K::NCH, c = i % K::NCH;
-        if (i < K::IN_UNITS) act[pix * K::NCH + swz<K::NCH>(pix, c)] = v[u];
-      }
+      for (int j = 0; j < 8; ++j) s8[j] = ssm[c * 8 + j];
     }
-    __syncthreads();
+
+    // the input tile: norm, relu, pool or the ring's cast on its copies;
+    // outside the image the conv's zero padding
+    for (int i = tid; i < K::IN_UNITS; i += kThreads) {
+      const int pix = i / K::NCH;
+      const int y = ty0 - 1 + pix / K::IW, x = tx0 - 1 + pix % K::IW;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (y >= 0 && y < p.h && x >= 0 && x < p.w) {
+        float f[8];
+        if constexpr (K::MODE == kRing) {
+          const float* r = reinterpret_cast<const float*>(raw) + pix * p.cin;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) f[j] = c * 8 + j < p.cin ? r[c * 8 + j] : 0.0f;
+          v = pack8(f);
+        } else if (!normed) {
+          v = raw[i];
+        } else {
+          norm_relu8(raw[i], s8, f);
+#pragma unroll
+          for (int k = 1; k < K::P; ++k) {
+            float g[8];
+            norm_relu8(raw[k * K::IN_UNITS + i], s8, g);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) f[j] = fmaxf(f[j], g[j]);
+          }
+          v = pack8(f);
+        }
+      }
+      act[pix * K::NCH + swz<K::NCH>(pix, c)] = v;
+    }
+    __syncthreads();  // the tile is in place; its stage takes a later tile's copies
+    issue(tile + K::STAGES * gridDim.x, stage);
+    stage = stage + 1 == K::STAGES ? 0 : stage + 1;
 
     float acc[K::MT][K::NT][4];
 #pragma unroll
@@ -301,7 +387,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.0f;
 
-#pragma unroll
+#pragma unroll K::UNROLL
     for (int tap = 0; tap < 9; ++tap) {
       const int off = (tap / 3) * K::IW + tap % 3;
       if constexpr (K::NCH == 1) {
@@ -364,48 +450,67 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs p) {
     }
     __syncthreads();
 
+    // the store, and the tile's statistics of the stored values in two
+    // passes: each thread sums the channels of its units, the block reduces
+    // the sums in a fixed order, then the same for the squares about each
+    // group's mean
+    constexpr int CPG = K::CO / kGroups;
+    const int cu = tid % K::NCO;  // the thread's units all hold channels [8 cu, 8 cu + 8)
+    float a[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[j] = 0.0f;
     for (int i = tid; i < K::OUT_UNITS; i += kThreads) {
-      const int q = i / K::NCO, c = i % K::NCO, oy = q / K::TW, ox = q % K::TW;
-      if (oy < vh && ox < vw)
+      const int q = i / K::NCO, oy = q / K::TW, ox = q % K::TW;
+      if (oy < vh && ox < vw) {
+        const uint4 u = act[q * K::NCO + swz<K::NCO>(q, cu)];
         *reinterpret_cast<uint4*>(p.out + (((size_t)bb * p.h + ty0 + oy) * p.w + tx0 + ox) * K::CO +
-                                  c * 8) = act[q * K::NCO + swz<K::NCO>(q, c)];
+                                  cu * 8) = u;
+        float f[8];
+        unpack8(u, f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[j] += f[j];
+      }
     }
-
-    // the tile's statistics of the stored values: warp w takes group w,
-    // its mean first, then the squares about it
-    {
-      constexpr int CPG = K::CO / kGroups;
-      const int unit = (warp * CPG) / 8, sub = (warp * CPG) % 8;
-      float s = 0.0f;
-      for (int q = lane; q < K::PIX; q += 32) {
-        if (q / K::TW < vh && q % K::TW < vw) {
-          const __nv_bfloat16* e =
-              reinterpret_cast<const __nv_bfloat16*>(act + q * K::NCO + swz<K::NCO>(q, unit)) + sub;
+    reduce_channels<K>(a, red, lane, warp);
+    __syncthreads();
+    const float n = (float)(vh * vw * CPG);
+    if (tid < kGroups) {
+      float sum = 0.0f;
+      for (int w = 0; w < kWarps; ++w)
 #pragma unroll
-          for (int k = 0; k < CPG; ++k) s += __bfloat162float(e[k]);
+        for (int k = 0; k < CPG; ++k) sum += red[w * K::CO + tid * CPG + k];
+      gmean[tid] = sum / n;
+    }
+    __syncthreads();
+    float mean[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mean[j] = gmean[(cu * 8 + j) / CPG];
+      a[j] = 0.0f;
+    }
+    for (int i = tid; i < K::OUT_UNITS; i += kThreads) {
+      const int q = i / K::NCO;
+      if (q / K::TW < vh && q % K::TW < vw) {
+        float f[8];
+        unpack8(act[q * K::NCO + swz<K::NCO>(q, cu)], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = f[j] - mean[j];
+          a[j] = fmaf(d, d, a[j]);
         }
       }
-      const float n = (float)(vh * vw * CPG);
-      const float mean = warp_sum(s) / n;
+    }
+    reduce_channels<K>(a, red, lane, warp);
+    __syncthreads();
+    if (tid < kGroups) {
       float m2 = 0.0f;
-      for (int q = lane; q < K::PIX; q += 32) {
-        if (q / K::TW < vh && q % K::TW < vw) {
-          const __nv_bfloat16* e =
-              reinterpret_cast<const __nv_bfloat16*>(act + q * K::NCO + swz<K::NCO>(q, unit)) + sub;
+      for (int w = 0; w < kWarps; ++w)
 #pragma unroll
-          for (int k = 0; k < CPG; ++k) {
-            const float d = __bfloat162float(e[k]) - mean;
-            m2 = fmaf(d, d, m2);
-          }
-        }
-      }
-      m2 = warp_sum(m2);
-      if (lane == 0) {
-        float* o = p.part + (((size_t)bb * per_sample + t) * kGroups + warp) * 3;
-        o[0] = n;
-        o[1] = mean;
-        o[2] = m2;
-      }
+        for (int k = 0; k < CPG; ++k) m2 += red[w * K::CO + tid * CPG + k];
+      float* o = p.part + (((size_t)bb * per_sample + t) * kGroups + tid) * 3;
+      o[0] = n;
+      o[1] = gmean[tid];
+      o[2] = m2;
     }
   }
 }
@@ -488,28 +593,33 @@ __global__ void __launch_bounds__(kThreads) conv_t_kernel(const ConvTArgs p) {
     const int bb = tile / per_sample, t = tile % per_sample;
     const int ty0 = (t / p.tiles_x) * K::TH, tx0 = (t % p.tiles_x) * K::TW;
     const int vh = min(K::TH, p.h - ty0), vw = min(K::TW, p.w - tx0);
-    __syncthreads();
-    for (int i = tid; i < K::CI; i += kThreads) ss[i] = p.ss[(size_t)bb * K::CI + i];
-    __syncthreads();
-    for (int i0 = tid; i0 < K::IN_UNITS; i0 += kThreads * 4) {
-      uint4 v[4];
+    // the tile's loads and the sample's (scale, shift) in one round trip
+    constexpr int UT = (K::IN_UNITS + kThreads - 1) / kThreads;
+    uint4 raw[UT];
+    const float2 ssv = tid < K::CI ? p.ss[(size_t)bb * K::CI + tid] : make_float2(0.0f, 0.0f);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * kThreads, pix = i / K::NCI, c = i % K::NCI;
-        const int y = pix / K::TW, x = pix % K::TW;
-        v[u] = make_uint4(0, 0, 0, 0);
-        if (i < K::IN_UNITS && y < vh && x < vw) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              p.src + (((size_t)bb * p.h + ty0 + y) * p.w + tx0 + x) * K::CI + c * 8);
+    for (int u = 0; u < UT; ++u) {
+      const int i = tid + u * kThreads, pix = i / K::NCI, c = i % K::NCI;
+      const int y = pix / K::TW, x = pix % K::TW;
+      if (i < K::IN_UNITS && y < vh && x < vw)
+        raw[u] = *reinterpret_cast<const uint4*>(
+            p.src + (((size_t)bb * p.h + ty0 + y) * p.w + tx0 + x) * K::CI + c * 8);
+    }
+    __syncthreads();  // the last tile's staging is stored
+    if (tid < K::CI) ss[tid] = ssv;
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < UT; ++u) {
+      const int i = tid + u * kThreads, pix = i / K::NCI, c = i % K::NCI;
+      const int y = pix / K::TW, x = pix % K::TW;
+      if (i < K::IN_UNITS) {
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (y < vh && x < vw) {
           float f[8];
-          norm_relu8(raw, ss + c * 8, f);
-          v[u] = pack8(f);
+          norm_relu8(raw[u], ss + c * 8, f);
+          v = pack8(f);
         }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * kThreads, pix = i / K::NCI, c = i % K::NCI;
-        if (i < K::IN_UNITS) in[pix * K::NCI + swz<K::NCI>(pix, c)] = v[u];
+        in[pix * K::NCI + swz<K::NCI>(pix, c)] = v;
       }
     }
     __syncthreads();
@@ -665,34 +775,35 @@ int launch_conv_t(ConvTArgs p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The one tile and source layout built for a layer: source A's load and
-// channels (the ring's padded to 8 or 16), the skip's channels, the outputs;
-// the tile by the output width where one layout runs at two sizes.
+// The one kernel built for a layer: source A's load and channels (the
+// ring's, at most 8), the skip's channels, the outputs; the tile by
+// the output width where one layout runs at two sizes. Stages, unrolling
+// and blocks an SM are the fastest of those timed on an H100 at 2,048
+// 180x320 rings (PERF.md).
 template <class F>
 int with_conv(int mode, int ca, int cb, int co, int w, F&& f) {
   const bool wide = w >= 120, mid = w >= 30;
   if (mode == kRing && cb == 0 && co == 8) {
-    if (ca <= 8) return f(Conv<8, 0, 8, kRing, 16, 64>{});
-    if (ca <= 16) return f(Conv<16, 0, 8, kRing, 16, 64>{});
+    if (ca <= 8) return f(Conv<8, 0, 8, kRing, 16, 64, 1, 9, 3>{});
   }
   if (mode == kNorm && cb == 0) {
-    if (ca == 8 && co == 8) return f(Conv<8, 0, 8, kNorm, 16, 64>{});
+    if (ca == 8 && co == 8) return f(Conv<8, 0, 8, kNorm, 16, 64, 2, 9, 3>{});
     if (ca == 16 && co == 16)
-      return wide ? f(Conv<16, 0, 16, kNorm, 16, 32>{}) : f(Conv<16, 0, 16, kNorm, 15, 40>{});
+      return wide ? f(Conv<16, 0, 16, kNorm, 16, 32, 2, 9, 2>{}) : f(Conv<16, 0, 16, kNorm, 15, 40, 2, 3, 1>{});
     if (ca == 32 && co == 32)
-      return mid ? f(Conv<32, 0, 32, kNorm, 11, 40>{}) : f(Conv<32, 0, 32, kNorm, 11, 20>{});
+      return mid ? f(Conv<32, 0, 32, kNorm, 11, 40, 1, 1, 1>{}) : f(Conv<32, 0, 32, kNorm, 11, 20, 2, 3, 1>{});
   }
   if (mode == kPool && cb == 0) {
-    if (ca == 8 && co == 16) return f(Conv<8, 0, 16, kPool, 16, 32>{});
-    if (ca == 16 && co == 16) return f(Conv<16, 0, 16, kPool, 15, 40>{});
-    if (ca == 16 && co == 32) return f(Conv<16, 0, 32, kPool, 11, 40>{});
-    if (ca == 32 && co == 32) return f(Conv<32, 0, 32, kPool, 11, 20>{});
+    if (ca == 8 && co == 16) return f(Conv<8, 0, 16, kPool, 16, 32, 1, 9, 1>{});
+    if (ca == 16 && co == 16) return f(Conv<16, 0, 16, kPool, 8, 40, 1, 3, 1>{});
+    if (ca == 16 && co == 32) return f(Conv<16, 0, 32, kPool, 11, 40, 1, 1, 1>{});
+    if (ca == 32 && co == 32) return f(Conv<32, 0, 32, kPool, 11, 20, 1, 3, 1>{});
   }
   if (mode == kRaw) {
-    if (ca == 32 && cb == 32 && co == 32) return f(Conv<32, 32, 32, kRaw, 11, 40>{});
+    if (ca == 32 && cb == 32 && co == 32) return f(Conv<32, 32, 32, kRaw, 11, 40, 1, 9, 1>{});
     if (ca == 16 && cb == 16 && co == 16)
-      return wide ? f(Conv<16, 16, 16, kRaw, 16, 32>{}) : f(Conv<16, 16, 16, kRaw, 15, 40>{});
-    if (ca == 8 && cb == 8 && co == 8) return f(Conv<8, 8, 8, kRaw, 16, 64>{});
+      return wide ? f(Conv<16, 16, 16, kRaw, 12, 32, 2, 9, 2>{}) : f(Conv<16, 16, 16, kRaw, 15, 40, 1, 3, 1>{});
+    if (ca == 8 && cb == 8 && co == 8) return f(Conv<8, 8, 8, kRaw, 16, 32, 2, 9, 1>{});
   }
   return kNoShape;
 }

@@ -19,9 +19,10 @@ with ``PlainOps``, the kernels' arithmetic in plain PyTorch (NHWC, bf16
 storage, float32 statistics, the norm on load). Rounding to bf16 falls
 where the module's forward rounds: each conv's output, and each conv's
 input as it casts it; only the order of the sums differs. Weights come
-from ``params`` on every call. ``unet_kernel.launches`` counts the
-kernels' launches: 41 a forward (18 conv3x3, 18 finalize, 4 transposed,
-1 output).
+from ``params`` on every call; the kernels take a ring of at most 8
+channels (the gaze configs' frame stack). ``unet_kernel.launches`` counts
+the kernels' launches: 41 a forward (18 conv3x3, 18 finalize, 4
+transposed, 1 output).
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
+def _f32(t: torch.Tensor, device) -> torch.Tensor:
+    """A parameter as the kernels read it: contiguous float32 on ``device``."""
+    if t.device != device:
+        raise ValueError(f"unet kernels: a parameter on {t.device}, the activations on {device}")
     return t.to(torch.float32).contiguous()
 
 
@@ -108,7 +112,7 @@ class UnetKernel:
             raise ValueError(f"unet conv3x3: no kernel for mode {mode}, channels {ca} + {cb} -> {co}")
         out = torch.empty((b, h, w, co), dtype=torch.bfloat16, device=a.device)
         part = torch.empty((b, tiles, GROUPS, 3), dtype=torch.float32, device=a.device)
-        wt, bs = _f32(weight), _f32(bias)
+        wt, bs = _f32(weight, out.device), _f32(bias, out.device)
         err = lib.unet_conv3x3(mode, ca, cb, co, a.data_ptr(), _ptr(ss_a), _ptr(skip), _ptr(ss_skip),
                                wt.data_ptr(), bs.data_ptr(), out.data_ptr(), part.data_ptr(), b, h, w,
                                sh, sw, cin, self._stream(a))
@@ -121,7 +125,7 @@ class UnetKernel:
         b, tiles = part.shape[:2]
         c = gamma.shape[0]
         ss = torch.empty((b, c, 2), dtype=torch.float32, device=part.device)
-        g, bt = _f32(gamma), _f32(beta)
+        g, bt = _f32(gamma, ss.device), _f32(beta, ss.device)
         err = lib.unet_gn_finalize(part.data_ptr(), tiles, c, g.data_ptr(), bt.data_ptr(), GN_EPS,
                                    ss.data_ptr(), b, self._stream(part))
         self._done("finalize", err)
@@ -133,7 +137,7 @@ class UnetKernel:
         b, h, w, ci = x.shape
         co = weight.shape[1]
         out = torch.empty((b, 2 * h + pad_h, 2 * w, co), dtype=torch.bfloat16, device=x.device)
-        wt, bs = _f32(weight), _f32(bias)
+        wt, bs = _f32(weight, out.device), _f32(bias, out.device)
         err = lib.unet_conv_t(ci, co, x.data_ptr(), ss.data_ptr(), wt.data_ptr(), bs.data_ptr(),
                               out.data_ptr(), b, h, w, pad_h, self._stream(x))
         self._done("conv_t", err)
@@ -145,7 +149,7 @@ class UnetKernel:
         b, h, w, ci = x.shape
         co = weight.shape[0]
         out = torch.empty((b, h, w, co), dtype=torch.bfloat16, device=x.device)
-        wt, bs = _f32(weight), _f32(bias)
+        wt, bs = _f32(weight, out.device), _f32(bias, out.device)
         err = lib.unet_out1x1(x.data_ptr(), ss.data_ptr(), wt.data_ptr(), bs.data_ptr(), out.data_ptr(),
                               b, h * w, ci, co, self._stream(x))
         self._done("out1x1", err)
