@@ -35,8 +35,7 @@
 //    per-group (count, mean, M2) in a scratch buffer: no atomics, so
 //    results are bitwise repeatable. What limits it on the card is the
 //    shared memory's and the issue slots' work a tile (the taps' ldmatrix
-//    reads are 9 times the tile), not the copies: a second copy stage
-//    changed nothing (PERF.md).
+//    reads are 9 times the tile), not the copies (PERF.md).
 // 2. gn_finalize merges each sample's tile partials in tile order (Chan's
 //    formula) into per-(sample, channel) scale = gamma * rstd and
 //    shift = beta - mean * scale.
@@ -162,13 +161,12 @@ struct ConvArgs {
 
 // CA: source A's channels in shared memory (the ring's, at most 8, padded to 8), CB:
 // source B's (0: none), CO: outputs, MODE: source A's load, TH x TW: the
-// output tile, STAGES: tiles whose copies are in flight at once, UNROLL:
-// the taps unrolled together, MINB: the blocks an SM must hold (a register
-// cap for the compiler).
-template <int CA_, int CB_, int CO_, int MODE_, int TH_, int TW_, int STAGES_, int UNROLL_, int MINB_>
+// output tile, UNROLL: the taps unrolled together, MINB: the blocks an SM
+// must hold (a register cap for the compiler).
+template <int CA_, int CB_, int CO_, int MODE_, int TH_, int TW_, int UNROLL_, int MINB_>
 struct Conv {
   static constexpr int CA = CA_, CB = CB_, CO = CO_, MODE = MODE_, TH = TH_, TW = TW_;
-  static constexpr int STAGES = STAGES_, UNROLL = UNROLL_, MINB = MINB_;
+  static constexpr int UNROLL = UNROLL_, MINB = MINB_;
   static constexpr int CIN = CA + CB;
   static constexpr int NCH = CIN / 8, NCA = CA / 8, NCO = CO / 8, NT = CO / 8;
   static constexpr int IH = TH + 2, IW = TW + 2;
@@ -184,7 +182,7 @@ struct Conv {
   // the tile's copies as they arrive: 16-byte units, or the ring's floats
   static constexpr int RAW_BYTES = MODE == kRing ? IH * IW * CA * 4 : RAW_UNITS * 16;
   static constexpr int SMEM =
-      (ACT_UNITS + W_UNITS) * 16 + STAGES * (RAW_BYTES + CIN * 8) + (CO + kWarps * CO + kGroups) * 4;
+      (ACT_UNITS + W_UNITS) * 16 + RAW_BYTES + CIN * 8 + (CO + kWarps * CO + kGroups) * 4;
   static_assert(CA % 8 == 0 && CB % 8 == 0 && CO % 8 == 0 && CO <= 32, "channel counts");
   static_assert(MODE != kRaw || CB > 0, "a raw source is the decoder's upsampled half");
   static_assert(kThreads % NCH == 0, "a thread's units share their channels");
@@ -209,11 +207,7 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int byt
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
-// Waits until at most N of the thread's latest copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 // Starts the copies of a tile's input with its halo into ``raw``: per unit
 // of the tile (pixel pix of the (TH + 2) x (TW + 2) window, channels
@@ -282,9 +276,9 @@ __global__ void __launch_bounds__(kThreads, K::MINB) conv3x3_kernel(const ConvAr
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* act = reinterpret_cast<uint4*>(smem);  // the input tile, then the output's staging
   uint4* wsm = act + K::ACT_UNITS;              // [tap][co] rows of NCH units
-  uint4* raw0 = wsm + K::W_UNITS;               // STAGES tiles' copies, RAW_BYTES each
-  float2* ssm0 = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(raw0) + K::STAGES * K::RAW_BYTES);
-  float* bias = reinterpret_cast<float*>(ssm0 + K::STAGES * K::CIN);
+  uint4* raw = wsm + K::W_UNITS;                // the next tile's copies
+  float2* ssm = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(raw) + K::RAW_BYTES);
+  float* bias = reinterpret_cast<float*>(ssm + K::CIN);
   float* red = bias + K::CO;       // [warp][channel] partial sums of the statistics
   float* gmean = red + kWarps * K::CO;  // [group]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -301,7 +295,7 @@ __global__ void __launch_bounds__(kThreads, K::MINB) conv3x3_kernel(const ConvAr
   }
   for (int i = tid; i < K::CO; i += kThreads) bias[i] = round_bf16(p.bias[i]);
 
-  const uint32_t act_s = smem_addr(act), w_s = smem_addr(wsm), raw_s = smem_addr(raw0), ss_s = smem_addr(ssm0);
+  const uint32_t act_s = smem_addr(act), w_s = smem_addr(wsm), raw_s = smem_addr(raw), ss_s = smem_addr(ssm);
   const int per_sample = p.tiles_y * p.tiles_x;
   const int n_tiles = p.batch * per_sample;
   // the lane's A rows: pixel m * 16 + (lane & 15) of the tile, as the input
@@ -317,28 +311,22 @@ __global__ void __launch_bounds__(kThreads, K::MINB) conv3x3_kernel(const ConvAr
   const int c = tid % K::NCH;
   const bool normed = c >= K::NCA || K::MODE == kNorm || K::MODE == kPool;
 
-  // The copies of the block's next STAGES tiles are in flight while it
-  // computes; stage k % STAGES holds its k-th tile's. Each tile's copies are
-  // one group (empty past the last tile).
-  auto issue = [&](int tile, int stage) {
+  // One tile's copies are in flight while the block computes the last one
+  // (a second tile in flight was timed and gained nothing: PERF.md).
+  auto issue = [&](int tile) {
     if (tile < n_tiles) {
       const int t = tile % per_sample;
-      issue_tile<K>(p, raw_s + stage * K::RAW_BYTES, ss_s + stage * K::CIN * 8, tile / per_sample,
-                    (t / p.tiles_x) * K::TH, (t % p.tiles_x) * K::TW);
+      issue_tile<K>(p, raw_s, ss_s, tile / per_sample, (t / p.tiles_x) * K::TH, (t % p.tiles_x) * K::TW);
     }
     cp_async_commit();
   };
-#pragma unroll
-  for (int st = 0; st < K::STAGES; ++st) issue(blockIdx.x + st * gridDim.x, st);
+  issue(blockIdx.x);
 
-  int stage = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int bb = tile / per_sample, t = tile % per_sample;
     const int ty0 = (t / p.tiles_x) * K::TH, tx0 = (t % p.tiles_x) * K::TW;
     const int vh = min(K::TH, p.h - ty0), vw = min(K::TW, p.w - tx0);
-    const uint4* raw = raw0 + stage * (K::RAW_BYTES / 16);
-    const float2* ssm = ssm0 + stage * K::CIN;
-    cp_async_wait<K::STAGES - 1>();
+    cp_async_wait_all();
     __syncthreads();  // this tile's copies are in; the last tile's staging is read
     float2 s8[8];
     if (normed) {
@@ -375,9 +363,8 @@ __global__ void __launch_bounds__(kThreads, K::MINB) conv3x3_kernel(const ConvAr
       }
       act[pix * K::NCH + swz<K::NCH>(pix, c)] = v;
     }
-    __syncthreads();  // the tile is in place; its stage takes a later tile's copies
-    issue(tile + K::STAGES * gridDim.x, stage);
-    stage = stage + 1 == K::STAGES ? 0 : stage + 1;
+    __syncthreads();  // the tile is in place; its copies' buffer takes the next tile's
+    issue(tile + gridDim.x);
 
     float acc[K::MT][K::NT][4];
 #pragma unroll
@@ -777,33 +764,33 @@ int launch_conv_t(ConvTArgs p, cudaStream_t stream) {
 
 // The one kernel built for a layer: source A's load and channels (the
 // ring's, at most 8), the skip's channels, the outputs; the tile by
-// the output width where one layout runs at two sizes. Stages, unrolling
-// and blocks an SM are the fastest of those timed on an H100 at 2,048
-// 180x320 rings (PERF.md).
+// the output width where one layout runs at two sizes. Unrolling and
+// blocks an SM are the fastest of those timed on an H100 at 2,048 180x320
+// rings (PERF.md).
 template <class F>
 int with_conv(int mode, int ca, int cb, int co, int w, F&& f) {
   const bool wide = w >= 120, mid = w >= 30;
   if (mode == kRing && cb == 0 && co == 8) {
-    if (ca <= 8) return f(Conv<8, 0, 8, kRing, 16, 64, 1, 9, 3>{});
+    if (ca <= 8) return f(Conv<8, 0, 8, kRing, 16, 64, 9, 3>{});
   }
   if (mode == kNorm && cb == 0) {
-    if (ca == 8 && co == 8) return f(Conv<8, 0, 8, kNorm, 16, 64, 2, 9, 3>{});
+    if (ca == 8 && co == 8) return f(Conv<8, 0, 8, kNorm, 16, 64, 9, 3>{});
     if (ca == 16 && co == 16)
-      return wide ? f(Conv<16, 0, 16, kNorm, 16, 32, 2, 9, 2>{}) : f(Conv<16, 0, 16, kNorm, 15, 40, 2, 3, 1>{});
+      return wide ? f(Conv<16, 0, 16, kNorm, 16, 32, 9, 2>{}) : f(Conv<16, 0, 16, kNorm, 15, 40, 3, 1>{});
     if (ca == 32 && co == 32)
-      return mid ? f(Conv<32, 0, 32, kNorm, 11, 40, 1, 1, 1>{}) : f(Conv<32, 0, 32, kNorm, 11, 20, 2, 3, 1>{});
+      return mid ? f(Conv<32, 0, 32, kNorm, 11, 40, 1, 1>{}) : f(Conv<32, 0, 32, kNorm, 11, 20, 3, 1>{});
   }
   if (mode == kPool && cb == 0) {
-    if (ca == 8 && co == 16) return f(Conv<8, 0, 16, kPool, 16, 32, 1, 9, 1>{});
-    if (ca == 16 && co == 16) return f(Conv<16, 0, 16, kPool, 8, 40, 1, 3, 1>{});
-    if (ca == 16 && co == 32) return f(Conv<16, 0, 32, kPool, 11, 40, 1, 1, 1>{});
-    if (ca == 32 && co == 32) return f(Conv<32, 0, 32, kPool, 11, 20, 1, 3, 1>{});
+    if (ca == 8 && co == 16) return f(Conv<8, 0, 16, kPool, 16, 32, 9, 1>{});
+    if (ca == 16 && co == 16) return f(Conv<16, 0, 16, kPool, 8, 40, 3, 1>{});
+    if (ca == 16 && co == 32) return f(Conv<16, 0, 32, kPool, 11, 40, 1, 1>{});
+    if (ca == 32 && co == 32) return f(Conv<32, 0, 32, kPool, 11, 20, 3, 1>{});
   }
   if (mode == kRaw) {
-    if (ca == 32 && cb == 32 && co == 32) return f(Conv<32, 32, 32, kRaw, 11, 40, 1, 9, 1>{});
+    if (ca == 32 && cb == 32 && co == 32) return f(Conv<32, 32, 32, kRaw, 11, 40, 9, 1>{});
     if (ca == 16 && cb == 16 && co == 16)
-      return wide ? f(Conv<16, 16, 16, kRaw, 12, 32, 2, 9, 2>{}) : f(Conv<16, 16, 16, kRaw, 15, 40, 1, 3, 1>{});
-    if (ca == 8 && cb == 8 && co == 8) return f(Conv<8, 8, 8, kRaw, 16, 32, 2, 9, 1>{});
+      return wide ? f(Conv<16, 16, 16, kRaw, 12, 32, 9, 2>{}) : f(Conv<16, 16, 16, kRaw, 15, 40, 3, 1>{});
+    if (ca == 8 && cb == 8 && co == 8) return f(Conv<8, 8, 8, kRaw, 16, 32, 9, 1>{});
   }
   return kNoShape;
 }
