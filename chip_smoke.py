@@ -184,10 +184,20 @@ Phases, each fatal on failure:
      the card (TF32 off), timed with CUDA events beside its byte bound
      (each layer's inputs read once, bf16 written once), the plain version
      and, as library_ms, the module's cuDNN forward that it replaces.
+ 25. the Kimi-VL labeler (models/kimi_vl.py, saliency/vlm_labeler.py) at
+     its published widths: one tower layer, one MLA layer and one expert
+     layer (after the dense layer 0) against the float32 reference
+     (reference/kimi_vl.py) on KIMI_WORLDS images and ragged prompts,
+     within KIMI_TOL (tests/test_torch_kimi_vl.py's bf16 bar); the expert
+     layer's two grouped products timed with CUDA events at the label
+     cell's prefill and decode sizes beside their bound
+     (drivebench/counts/kimi_vl.py); and the whole model's labeled tick at
+     KIMI_TICK_WORLDS worlds under the profiler: its kernel launches,
+     device busy share and span stream ms.
 Prints JSON lines of the kernel records, the train step's, the gaze
 predictor step's, the heat rollouts', the collection's, the VQ-VAE step's,
 the pipeline's, the protocol's, the tools', phase 19's, 20's, 21's, 22's,
-23's and 24's numbers, the card line, and last
+23's, 24's and 25's numbers, the card line, and last
 {"ok": true, "device": {...}}. Exits non-zero without them when there is no
 CUDA device or any phase fails. ``--resume-check EPISODES VQ_PATH OUT`` runs
 phase 16's subprocess.
@@ -2650,6 +2660,159 @@ def unet_phase(card: str) -> dict:
             "card": card}
 
 
+# phase 25: the Kimi-VL labeler at its published widths (models/kimi_vl.py, saliency/vlm_labeler.py)
+KIMI_WORLDS = 8  # images and prompts of the layer checks
+KIMI_TOL = 0.1  # tests/test_torch_kimi_vl.py BF16_TOL
+KIMI_TICK_WORLDS = 256  # drivebench's kimi_vl.label_w256
+KIMI_PREFILL_TOKENS = 188 * 256  # the label cell's prefill tokens a tick at a mean prompt of 188
+KIMI_REPS = 10
+
+
+def kimi_layers_vs_reference(seed: int = 25) -> dict:
+    """Relative L2 gaps over KIMI_WORLDS worlds of the port's bf16 tower
+    layer (the projector's output), logits of a dense and an expert decoder
+    layer (prefill's last position and two decode steps; the reference
+    routed as the port chose) and their latent cache against the float32
+    reference, at published widths and vocabulary; and the expert choices'
+    largest shortfall below the reference's k-th score
+    (reference/kimi_vl.py ``route_shortfall``)."""
+    import dataclasses as dc
+
+    from gabril_carla_tpu_torch.models.kimi_vl import KimiVL, KimiVLConfig
+    from gabril_carla_tpu_torch.reference import kimi_vl as R
+
+    from gabril_carla_tpu_torch.models.kimi_vl import Router
+    from gabril_carla_tpu_torch.saliency.vlm_labeler import LabelerConfig
+
+    cfg = KimiVLConfig(vit_layers=1, num_hidden_layers=2)
+    model = KimiVL.random(cfg, seed, "cuda", LabelerConfig().router_bias_std)
+    routed = []  # the expert layer's experts: the prefill's, then each decode step's
+    hooks = [m.register_forward_hook(lambda mod, args, out: routed.append(out[0]))
+             for m in model.modules() if isinstance(m, Router)]
+    st, cd = model.state_dict(), dc.asdict(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (KIMI_WORLDS, 180, 320), generator=gen, device="cuda", dtype=torch.uint8)
+    px = torch.stack([R.pixels(f, (196, 336)) for f in frames])
+    lengths = [132 + 7 * int(n) for n in torch.randint(0, 17, (KIMI_WORLDS,), generator=gen, device="cuda")]
+    ids = torch.randint(0, 160000, (sum(lengths),), generator=gen, device="cuda")
+    with torch.inference_mode():
+        image = model.encode_images(px)
+        logits, cache = model.prefill(ids, lengths, image, 24, 2)
+        prompt_cache = [kv.clone() for kv in cache.kv]
+        out, fed = [logits], []
+        for _ in range(2):
+            fed.append(out[-1].argmax(-1))
+            out.append(model.decode(fed[-1], cache))
+    for h in hooks:
+        h.remove()
+    got = torch.stack(out, 1).float()
+    fed = torch.stack(fed, 1)
+    ref_img = R.vision(st, cd, list(px))
+    starts = [0]
+    for n in lengths:
+        starts.append(starts[-1] + n)
+    seqs = [(torch.cat([ids[starts[b]:starts[b + 1]], fed[b]]), ref_img[b], 24,
+             torch.arange(lengths[b] - 1, lengths[b] + 2, device="cuda")) for b in range(KIMI_WORLDS)]
+    routes = [[torch.cat([routed[0][starts[b]:starts[b + 1]], routed[1][b:b + 1], routed[2][b:b + 1]])]
+              for b in range(KIMI_WORLDS)]  # the reference follows the port's expert choices (drivers/label.py)
+    ref_cache, kept = [], []
+    want = R.logits(st, cd, seqs, keep_cache=ref_cache, routes=routes, keep_routes=kept)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    return {"vision": rel(image, torch.stack(ref_img)),
+            "routes": max(R.route_shortfall(r, cfg.num_experts_per_tok) for r in kept),
+            "logits": max(rel(got[:, i], torch.stack([w[i] for w in want])) for i in range(3)),
+            "cache": max(rel(torch.cat([prompt_cache[layer][b, :n] for b, n in enumerate(lengths)]),
+                             torch.cat([ref_cache[b][layer][:n] for b, n in enumerate(lengths)]))
+                         for layer in range(2))}
+
+
+def kimi_vl_phase(card: str) -> dict:
+    """Phase 25 (module docstring)."""
+    import dataclasses as dc
+    import tempfile
+
+    import numpy as np
+
+    from drivebench.counts import kimi_vl as KC
+    from gabril_carla_tpu_torch.cli import collect as C
+    from gabril_carla_tpu_torch.data.tasks import seen_routes, unseen_routes
+    from gabril_carla_tpu_torch.env.world import load_benchmark_specs, spec_rows, to_torch
+    from gabril_carla_tpu_torch.models.kimi_vl import KimiVLConfig, grouped_experts
+    from gabril_carla_tpu_torch.saliency.pseudo_gaze import scene_boxes
+    from gabril_carla_tpu_torch.saliency.vlm_labeler import LabelerConfig
+    from gabril_carla_tpu_torch.utils.profiling import idle_by_span, profile_trace, span_summary
+
+    gaps = kimi_layers_vs_reference()
+    log(f"[kimi_vl] one tower layer, a dense and an expert decoder layer at published widths against the "
+        f"float32 reference: relative L2 vision {gaps['vision']:.5f}, logits {gaps['logits']:.5f}, latent "
+        f"cache {gaps['cache']:.5f}; routing shortfall {gaps['routes']:.5f} (bar {KIMI_TOL})")
+    if not max(gaps.values()) < KIMI_TOL:
+        raise SystemExit(f"chip_smoke: the Kimi-VL layers miss the reference: {gaps}")
+    torch.cuda.empty_cache()
+
+    cfg = KimiVLConfig()
+    cd = dc.asdict(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    e, h, i, k = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts_per_tok
+    gate_up = torch.randn(e, 2 * i, h, generator=gen, device="cuda").mul_(0.02).bfloat16()
+    down = torch.randn(e, h, i, generator=gen, device="cuda").mul_(0.02).bfloat16()
+    products = {}
+    for name, tokens in (("prefill", KIMI_PREFILL_TOKENS), ("decode", KIMI_TICK_WORLDS)):
+        x = torch.randn(tokens, h, generator=gen, device="cuda").bfloat16()
+        idx = torch.topk(torch.rand(tokens, e, generator=gen, device="cuda"), k, -1).indices
+        w = torch.rand(tokens, k, generator=gen, device="cuda")
+        ms = time_ms(lambda: grouped_experts(x, idx, w, gate_up, down), KIMI_REPS)
+        order = torch.argsort(idx.flatten(), stable=True)
+        xs = x.index_select(0, order // k)
+        offs = torch.cumsum(torch.bincount(idx.flatten(), minlength=e), 0).to(torch.int32)
+        mid = torch.zeros(tokens * k, i, device="cuda", dtype=torch.bfloat16)
+        p_ms = time_ms(lambda: (torch._grouped_mm(xs, gate_up.transpose(1, 2), offs=offs),
+                                torch._grouped_mm(mid, down.transpose(1, 2), offs=offs)), KIMI_REPS)
+        b_ms = 1e3 * KC.grouped_bound_s(cd, tokens * k)
+        products[name] = {"tokens": tokens, "pairs": tokens * k, "layer_ms": ms, "products_ms": p_ms,
+                          "bound_ms": b_ms, "roofline_pct": 100 * b_ms / p_ms}
+        log(f"[kimi_vl] one expert layer at {tokens} tokens ({tokens * k} pairs): the two grouped products "
+            f"{p_ms:.4f} ms against a bound of {b_ms:.4f} ms ({100 * b_ms / p_ms:.1f}%); the whole routed "
+            f"layer (sort, gather, products, weighted scatter) {ms:.4f} ms; on {card}")
+    del gate_up, down
+    torch.cuda.empty_cache()
+
+    labeler = C.vlm_labeler(25, LabelerConfig(seed=25), "cuda")
+    routes = seen_routes() + unseen_routes()
+    spec = to_torch(spec_rows(load_benchmark_specs(routes), np.arange(KIMI_TICK_WORLDS) % len(routes)), "cuda")
+    loads = C.balance_labeler(labeler, spec)
+    log(f"[kimi_vl] routers fitted: heaviest expert over the mean load a layer {min(loads):.3f}-{max(loads):.3f}")
+    state = C.DrivingEnv().reset(spec)
+    frame = (C.render_frame(spec, state) * 255).to(torch.uint8)
+    boxes = scene_boxes(state)
+    labeler.label(frame, boxes)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    coords = labeler.label(frame, boxes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as prof:
+            labeler.label(frame, boxes)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        idle = idle_by_span(prof.trace_path)
+    launches = sum(n for n, _ in kernels.values())
+    stream = {n: s["stream_ms"] for n, s in span_summary()["spans"].items()}
+    counters = span_summary()["counters"]
+    rec = {"gaps": gaps, "products": products, "tick_wall_s": wall, "tick_launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "stream_ms": stream, "counters": counters,
+           "idle_ms": idle, "labeled": int((coords[:, 0] >= 0).sum()), "balanced_loads": loads, "card": card}
+    log(f"[kimi_vl] a labeled tick at {KIMI_TICK_WORLDS} worlds: {wall:.3f} s, {launches} kernel launches, "
+        f"peak {rec['peak_bytes'] / 1e9:.2f} GB; span stream ms {stream}; counters {counters}; "
+        f"{rec['labeled']} worlds with a label")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2857,6 +3020,11 @@ def main() -> int:
         t_phase = time.perf_counter()
         unet = unet_phase(card)
         log(f"[phases] 24 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 25. the Kimi-VL labeler at its published widths
+        t_phase = time.perf_counter()
+        kimi = kimi_vl_phase(card)
+        log(f"[phases] 25 in {time.perf_counter() - t_phase:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
 
     by_path = {"main": launches, **{f"heat {k}": v["launches"] for k, v in heat.items()},
@@ -2899,6 +3067,7 @@ def main() -> int:
     print(json.dumps({"threefry": threefry}))
     print(json.dumps({"bench": bench}))
     print(json.dumps({"unet": unet}))
+    print(json.dumps({"kimi_vl": kimi}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -17,6 +17,12 @@ recorded actions.npz (human_agent.py:146-148), ``--video`` adds
 episode.gif (PIL, imported only then). ``--xosc`` collects on an
 OpenSCENARIO storyboard (env/xosc.py) in place of a benchmark route; its
 episodes go under route_<storyboard name>.
+
+``--gaze vlm --vlm_seed N`` also labels every tick with the VLM labeler
+(saliency/vlm_labeler.py: Kimi-VL-A3B-Instruct at its published sizes on
+the card, weights drawn from N, the routers' biases fitted on the first
+frames) over the scene graph's boxes, and writes
+its coordinates beside gaze.npz as gaze_pseudo.npz.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from ..env.world import build_world_spec, load_benchmark_specs, spec_rows, stack
 from ..env.xosc import load_xosc
 from ..eval.stats import route_record, write_stats_json
 from ..ops.raster import analytic_gaze, render_frame
+from ..saliency.pseudo_gaze import scene_boxes
 from ..utils.prng import env_draws, prng_key
+from ..utils.profiling import span
 
 GAZE_POINTS = 5
 
@@ -49,25 +57,58 @@ def seed_draws(seeds, steps: int, device) -> torch.Tensor:
 
 @torch.inference_mode()
 def collect(spec, steps: int, draws: torch.Tensor, replay_actions: torch.Tensor | None = None,
-            curvature_gaze: bool = False):
+            curvature_gaze: bool = False, labeler=None):
     """Roll the worlds of ``spec`` for ``steps`` ticks: render, analytic
     gaze, the expert's action (or the replayed one, the same for every
     world), env step. Returns (final state, frames uint8 [steps, B, H, W],
-    actions [steps, B, 7], gaze [steps, B, 10])."""
+    actions [steps, B, 7], gaze [steps, B, 10]); with a ``labeler``
+    (saliency/vlm_labeler.py) also its coordinates [steps, B, 10] of each
+    tick's frame and scene boxes."""
     env = DrivingEnv()
     state = env.reset(spec)
     b = spec.route_len.shape[0]
-    frames, actions, gazes = [], [], []
+    frames, actions, gazes, pseudo = [], [], [], []
     for t in range(steps):
-        frames.append((render_frame(spec, state) * 255).to(torch.uint8))
-        gazes.append(analytic_gaze(spec, state, GAZE_POINTS, curvature_anticipation=curvature_gaze))
-        if replay_actions is not None:
-            action = replay_actions[min(t, replay_actions.shape[0] - 1)].expand(b, -1)
-        else:
-            action = expert_action(spec, state)
-        actions.append(action)
-        state = env.step(spec, state, action, draws[t])
-    return state, torch.stack(frames), torch.stack(actions), torch.stack(gazes)
+        with span("collect.tick"):
+            with span("collect.render"):
+                frame = (render_frame(spec, state) * 255).to(torch.uint8)
+            frames.append(frame)
+            gazes.append(analytic_gaze(spec, state, GAZE_POINTS, curvature_anticipation=curvature_gaze))
+            if labeler is not None:
+                pseudo.append(labeler.label(frame, scene_boxes(state)))
+            with span("collect.expert"):
+                if replay_actions is not None:
+                    action = replay_actions[min(t, replay_actions.shape[0] - 1)].expand(b, -1)
+                else:
+                    action = expert_action(spec, state)
+            actions.append(action)
+            with span("collect.env_step"):
+                state = env.step(spec, state, action, draws[t])
+    out = (state, torch.stack(frames), torch.stack(actions), torch.stack(gazes))
+    return out if labeler is None else (*out, torch.stack(pseudo))
+
+
+def vlm_labeler(seed: int, cfg, device, model_cfg=None, dtype=torch.bfloat16):
+    """The VLM labeler (saliency/vlm_labeler.py ``VLMLabeler``, its
+    ``LabelerConfig`` ``cfg``) on Kimi-VL-A3B-Instruct at its published sizes
+    (or ``model_cfg``), the weights drawn on ``device`` from ``seed``
+    (models/kimi_vl.py ``KimiVL.random``, the router bias at
+    ``cfg.router_bias_std``)."""
+    from ..models.kimi_vl import KimiVL, KimiVLConfig
+    from ..saliency.vlm_labeler import VLMLabeler
+
+    model = KimiVL.random(model_cfg or KimiVLConfig(), seed, device, cfg.router_bias_std, dtype)
+    return VLMLabeler(model, cfg)
+
+
+def balance_labeler(labeler, spec) -> list[float]:
+    """Fit the labeler's routers (``VLMLabeler.balance``) on the reset
+    frames and scene boxes of ``spec``'s worlds. Returns each expert layer's
+    heaviest-over-mean load after the fit."""
+    state = DrivingEnv().reset(spec)
+    with torch.inference_mode():
+        frame = (render_frame(spec, state) * 255).to(torch.uint8)
+    return labeler.balance(frame, scene_boxes(state))
 
 
 def write_gif(path: Path, frames: np.ndarray):
@@ -93,6 +134,9 @@ def main(argv=None, device="cuda"):
     p.add_argument("--curvature_gaze", action="store_true",
                    help="curvature-anticipating (tangent-point) road fixations "
                         "instead of the fixed 15 m preview (ops/raster.py)")
+    p.add_argument("--gaze", choices=("analytic", "vlm"), default="analytic",
+                   help="vlm: also write gaze_pseudo.npz from the VLM labeler (saliency/vlm_labeler.py)")
+    p.add_argument("--vlm_seed", type=int, default=0, help="seed of the VLM's random weights and prompt")
     args = p.parse_args(argv)
 
     if args.xosc:
@@ -108,8 +152,16 @@ def main(argv=None, device="cuda"):
     if args.replay:
         replay = torch.from_numpy(np.load(Path(args.replay) / "actions.npz")["actions"]).to(device)
 
-    state, frames, actions, gazes = collect(spec, args.steps, seed_draws(args.seeds, args.steps, device),
-                                            replay, args.curvature_gaze)
+    labeler = None
+    if args.gaze == "vlm":
+        from ..saliency.vlm_labeler import LabelerConfig
+
+        labeler = vlm_labeler(args.vlm_seed, LabelerConfig(seed=args.vlm_seed), device)
+        balance_labeler(labeler, spec)
+    out = collect(spec, args.steps, seed_draws(args.seeds, args.steps, device), replay, args.curvature_gaze,
+                  labeler)
+    state, frames, actions, gazes = out[:4]
+    pseudo = out[4].cpu().numpy() if labeler is not None else None
     n_ticks = state.t.cpu().numpy()  # valid ticks per world (a world freezes at done)
     frames, actions, gazes = frames.cpu().numpy(), actions.cpu().numpy(), gazes.cpu().numpy()
     score = {k: v.cpu() for k, v in compute_score(spec, state).items()}
@@ -122,6 +174,8 @@ def main(argv=None, device="cuda"):
         np.savez_compressed(ep / "observations.npz", observations=obs)
         np.savez_compressed(ep / "actions.npz", actions=actions[:n, i])
         np.savez_compressed(ep / "gaze.npz", gaze=gazes[:n, i])
+        if pseudo is not None:
+            np.savez_compressed(ep / "gaze_pseudo.npz", gaze=pseudo[:n, i])
         if args.video:
             write_gif(ep / "episode.gif", obs[..., 0])
         rec = route_record(route_label, seed, {k: v[i] for k, v in score.items()},

@@ -28,9 +28,15 @@ children cover. Spans of one thread nest; the names the port opens:
   train.step   > train.draws (BC), train.forward > train.heat_prep,
                  train.backward, train.allreduce (with a group), train.optimizer
   trainer.<stage> (StageTimer) around the Trainer's stages
+  collect.tick > collect.render, collect.expert, collect.env_step,
+                 label.vision, label.prefill, label.decode (with a labeler)
+  label.prefill, label.decode > label.moe (each expert layer)
 
 The launch counters are read where their kernel's module is loaded: a span
-never imports one.
+never imports one. Beside them, ``tally(name, n)`` adds to a counter of
+its own while a profiler session runs (the VLM labeler's tokens, routed
+pairs, heaviest expert loads and experts that got any pair); a tensor
+stays on its device until ``span_summary`` reads it.
 
 A span is kept when the profiler ran at its open and at its close and its
 parent was kept. A span whose parent opened before the session began is
@@ -58,7 +64,7 @@ from pathlib import Path
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-PORT_SPANS = ("rollout.", "train.", "trainer.")  # prefixes of the spans the port opens
+PORT_SPANS = ("rollout.", "train.", "trainer.", "collect.", "label.")  # prefixes of the spans the port opens
 NO_SPAN = "(no port span)"  # idle_by_span's key for idle outside every port span
 _OFF = contextlib.nullcontext()
 
@@ -96,6 +102,7 @@ class _Record:
         self.free: list = []  # CUDA events of dropped records, recorded again by later spans
         self.counters0: list[int] = []
         self.counters1: list[int] = []
+        self.tallies: dict = {}
 
 
 _REC = _Record()
@@ -118,6 +125,17 @@ def reset_spans():
     _REC.free += [e for s in _REC.spans if s.e0 is not None for e in (s.e0, s.e1)]
     _REC.spans, _REC.stack, _REC.stale = [], [], False
     _REC.counters0 = _REC.counters1 = _launches()
+    _REC.tallies = {}
+
+
+def tally(name: str, n):
+    """Add ``n`` (an int, or a tensor summed where it lies, without a
+    synchronize) to the counter ``name`` of the current record while a
+    profiler session runs; otherwise nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        if _REC.stale:
+            reset_spans()
+        _REC.tallies[name] = _REC.tallies.get(name, 0) + n
 
 
 def _event():
@@ -206,10 +224,12 @@ def span_records() -> list[dict]:
 def span_summary() -> dict:
     """{"spans": {name: {count, host_ms, host_self_ms, stream_ms,
     stream_self_ms}}, "counters": {render_kernel_launches,
-    threefry_kernel_launches, unet_kernel_launches}} over the kept spans: totals over each name's
-    spans, self time without what their children cover, stream times None
-    without CUDA events; the counters are the launches from the record's
-    start to its last kept span's close. Synchronizes the card first."""
+    threefry_kernel_launches, unet_kernel_launches, and each tally}} over
+    the kept spans: totals over each name's spans, self time without what
+    their children cover, stream times None without CUDA events; the
+    launch counters are the launches from the record's start to its last
+    kept span's close, a tally its sum since the record's start.
+    Synchronizes the card first."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     recs = span_records()
@@ -230,6 +250,7 @@ def span_summary() -> dict:
             s["stream_ms"] = (s["stream_ms"] or 0.0) + r["stream_ms"]
             s["stream_self_ms"] = (s["stream_self_ms"] or 0.0) + r["stream_ms"] - stream_child
     counters = {name: b - a for (name, _, _), a, b in zip(_COUNTERS, _REC.counters0, _REC.counters1)}
+    counters.update({k: int(v) for k, v in _REC.tallies.items()})
     return {"spans": out, "counters": counters}
 
 

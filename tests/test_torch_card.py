@@ -26,7 +26,9 @@ human loop's core launching the kernel once a tick and replayed bitwise
 through collect; the native gather bitwise the numpy loop on the card
 machine's host; the threefry kernel bitwise its plain version and numpy's
 threefry, once a launch a draw of a train step; the bench entry point
-launching the kernel once a tick.
+launching the kernel once a tick; Kimi-VL's tower layer, dense and expert
+decoder layers at published widths within chip_smoke.KIMI_TOL of the
+float32 reference.
 """
 
 import itertools
@@ -372,3 +374,14 @@ def test_train_step_draws_on_card(cuda, dropout, launches):
     for k in want:
         pairs = zip(got[k], want[k]) if k == "igmd" else [(got[k], want[k])]
         assert all(torch.equal(a.cpu(), b) for a, b in pairs)
+
+
+def test_kimi_vl_layers_match_reference(cuda):
+    """One tower layer, a dense and an expert decoder layer of Kimi-VL at its
+    published widths (bf16, the grouped expert products): the projector's
+    output, the prefill's and two decode steps' logits and the latent cache
+    against the float32 reference (chip_smoke.py phase 25)."""
+    from chip_smoke import KIMI_TOL, kimi_layers_vs_reference
+
+    gaps = kimi_layers_vs_reference()
+    assert max(gaps.values()) < KIMI_TOL, gaps
